@@ -1,0 +1,349 @@
+"""Node-aware performance model — paper §IV, Equations (1)-(6).
+
+The port of what the dispatcher and the bucket planner of
+``repro/core/perf_model.py`` reach: the max-rate message cost (Eq 3), the
+NAP (Eq 6), recursive-doubling (Eq 4, the ``psum`` fallback's price), MLA
+and pipelined-MLA costs, the NAP<->MLA crossover, the model-optimal
+pipeline depth and the model-optimal grad-sync bucket size.
+
+The machine constants are the JAX package's own (:data:`TPU_V5E_POD` is
+its default, :data:`BLUE_WATERS` the paper's), kept so that the port plans
+and dispatches exactly as the reference does.  They describe those
+machines, not an H100 host: fitting constants for NVLink / InfiniBand is
+an open item.  All sizes are bytes, all times seconds.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+__all__ = [
+    "MachineParams",
+    "BLUE_WATERS",
+    "TPU_V5E_POD",
+    "maxrate_message_cost",
+    "cost_rd",
+    "cost_nap",
+    "cost_mla",
+    "cost_mla_pipelined",
+    "cost_psum",
+    "optimal_pipeline_chunks",
+    "crossover_bytes",
+    "dispatched_allreduce_cost",
+    "optimal_bucket_bytes",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class MachineParams:
+    """Two-level max-rate machine model (paper Eq 3)."""
+
+    alpha_l: float  # intra-node per-message latency  [s]
+    beta_l: float   # intra-node per-byte cost        [s/B]
+    alpha: float    # inter-node per-message latency  [s]
+    R_b: float      # inter-node per-process bandwidth [B/s] (1/beta)
+    R_N: float      # per-node injection bandwidth     [B/s]
+    gamma: float    # local reduction cost             [s/B]
+    name: str = "machine"
+
+
+# Gemini-class constants (order of magnitude from the max-rate papers).
+BLUE_WATERS = MachineParams(
+    alpha_l=5.0e-7,
+    beta_l=1.8e-10,   # ~5.5 GB/s shared-memory copy
+    alpha=2.6e-6,
+    R_b=2.3e9,        # ~2.3 GB/s per process pair
+    R_N=5.5e9,        # ~5.5 GB/s node injection
+    gamma=2.5e-11,    # ~40 GB/s local reduce stream
+    name="blue_waters",
+)
+
+# TPU mapping: node = pod. Intra-"node" transport is ICI (per-link ~50 GB/s,
+# ~1 us software latency through XLA collectives); inter-pod is the data
+# centre network with per-host NICs shared by 4 chips.
+TPU_V5E_POD = MachineParams(
+    alpha_l=1.0e-6,
+    beta_l=2.2e-11,   # ~45 GB/s ICI effective
+    alpha=1.0e-5,
+    R_b=6.25e9,       # ~6.25 GB/s per chip across the DCN
+    R_N=2.5e10,       # ~25 GB/s per-host NIC (4 chips)
+    gamma=1.25e-12,   # 819 GB/s HBM-bound vector add
+    name="tpu_v5e_pod",
+)
+
+
+def _log2(x: int) -> float:
+    return math.log2(x) if x > 1 else 0.0
+
+
+def _log_ppn(n: int, ppn: int) -> int:
+    """ceil(log_ppn(n)) — inter-node steps of NAP (non-powers pay the next
+    power's step count, paper §VI)."""
+    if n <= 1:
+        return 0
+    if ppn < 2:
+        return max(0, math.ceil(_log2(n)))
+    return max(1, math.ceil(math.log(n) / math.log(ppn) - 1e-12))
+
+
+
+def maxrate_message_cost(
+    s: float, p: MachineParams, active_per_node: int = 1
+) -> float:
+    """Eq 3 inter-node term for one message step with ``active_per_node``
+    concurrent senders per node: alpha + ppn_act*s / min(R_N, ppn_act*R_b).
+    """
+    k = max(1, active_per_node)
+    return p.alpha + (k * s) / min(p.R_N, k * p.R_b)
+
+
+def cost_rd(s: float, n: int, ppn: int, p: MachineParams) -> float:
+    """Eq 4: recursive doubling. Every chip crosses the network log2(n)
+    times with ppn concurrent senders per node (injection-limited)."""
+    intra = (p.alpha_l + p.beta_l * s) * _log2(ppn)
+    inter = maxrate_message_cost(s, p, active_per_node=ppn) * _log2(n)
+    comp = p.gamma * s * _log2(n * ppn)
+    return intra + inter + comp
+
+
+
+def cost_nap(s: float, n: int, ppn: int, p: MachineParams) -> float:
+    """Eq 6: NAP. log_ppn(n) inter steps (all ppn chips inject), intra
+    cost grows to log2(p), plus log_ppn(n) extra local combines."""
+    steps = _log_ppn(n, ppn)
+    intra = (p.alpha_l + p.beta_l * s) * _log2(n * ppn)
+    inter = maxrate_message_cost(s, p, active_per_node=ppn) * steps
+    comp = p.gamma * s * (_log2(n * ppn) + steps)
+    return intra + inter + comp
+
+
+def cost_mla(s: float, n: int, ppn: int, p: MachineParams) -> float:
+    """Multi-lane node-aware (MLA) allreduce under the max-rate model.
+
+    Intra: psum_scatter + allgather each move ``s*(ppn-1)/ppn`` bytes over
+    the fast domain in ``log2(ppn)`` message rounds.  Inter: all ``ppn``
+    lanes run reduce-scatter + allgather concurrently, so each chip crosses
+    the slow domain with ``2*(s/ppn)*(n-1)/n`` bytes at the per-chip rate
+    ``min(R_b, R_N/ppn)`` (all lanes inject at once) over ``2*log2(n)``
+    latency steps.  The serialized sum of the shared stage times — the
+    one-chunk special case of :func:`cost_mla_pipelined`.
+    """
+    t_rs, t_inter, t_ag = _mla_stage_times(s, n, ppn, p)
+    comp = p.gamma * s * 2.0  # local stripe reduce + per-lane RS folds
+    return t_rs + t_inter + t_ag + comp
+
+
+def _mla_stage_times(
+    s_c: float, n: int, ppn: int, p: MachineParams
+) -> tuple[float, float, float]:
+    """(intra-RS, inter RS+AG, intra-AG) times for one ``s_c``-byte chunk.
+
+    The single source of the MLA stage formulas: :func:`cost_mla` sums
+    them serially and :func:`cost_mla_pipelined` pipelines them, so the
+    two models cannot drift apart.
+    """
+    lanes = max(1, ppn)
+    li = math.ceil(_log2(ppn)) if ppn > 1 else 0
+    t_intra = li * p.alpha_l + p.beta_l * s_c * (lanes - 1) / lanes
+    if n > 1:
+        lo = math.ceil(_log2(n))
+        lane_bytes = 2.0 * (s_c / lanes) * (n - 1) / n
+        rate = min(p.R_b, p.R_N / lanes)
+        t_inter = 2 * lo * p.alpha + lane_bytes / rate
+    else:
+        t_inter = 0.0
+    return t_intra, t_inter, t_intra
+
+
+def cost_mla_pipelined(
+    s: float, n: int, ppn: int, p: MachineParams, chunks: int | None = None
+) -> float:
+    """Chunked, pipelined MLA cost under the max-rate model.
+
+    The payload is split into ``chunks`` pieces; chunk ``c``'s inter-pod
+    reduce-scatter/allgather overlaps chunk ``c±1``'s intra-pod phases
+    (distinct networks: ICI vs DCI).  The makespan is the classic pipeline
+    bound — whichever network domain is the bottleneck processes all
+    ``chunks`` of its stages back to back, plus the fill/drain cost of the
+    other domain's first and last chunk:
+
+        T = max(C*t_inter + t_rs + t_ag,  C*(t_rs + t_ag) + t_inter) + comp
+
+    ``chunks=1`` degenerates exactly to :func:`cost_mla`.  ``chunks=None``
+    picks the model-optimal depth (:func:`optimal_pipeline_chunks`) — the
+    bandwidth term is unchanged by chunking while the alpha term grows
+    linearly in ``C``, so the optimum balances overlap savings against
+    the ``C * 2*log2(n) * alpha`` latency bill.
+    """
+    if chunks is None:
+        chunks = optimal_pipeline_chunks(s, n, ppn, p)
+    c = max(1, int(chunks))
+    t_rs, t_inter, t_ag = _mla_stage_times(s / c, n, ppn, p)
+    span = max(c * t_inter + t_rs + t_ag, c * (t_rs + t_ag) + t_inter)
+    return span + p.gamma * s * 2.0
+
+
+def optimal_pipeline_chunks(
+    s: float, n: int, ppn: int, p: MachineParams, max_chunks: int = 16
+) -> int:
+    """Model-optimal MLA pipeline depth (1 = don't pipeline).
+
+    Evaluates the closed form over ``1..max_chunks`` — cheap enough to be
+    exact rather than using the sqrt rule of thumb, and naturally returns
+    1 whenever the alpha bill outweighs the overlap (small payloads,
+    latency-dominated machines).
+    """
+    if n <= 1 or ppn <= 1:
+        return 1  # no second domain to overlap with
+    best_c, best_t = 1, None
+    for c in range(1, max(1, max_chunks) + 1):
+        t = cost_mla_pipelined(s, n, ppn, p, chunks=c)
+        if best_t is None or t < best_t:
+            best_c, best_t = c, t
+    return best_c
+
+
+def _cost_mla_pipelined_opt(
+    s: float, n: int, ppn: int, p: MachineParams
+) -> float:
+    return cost_mla_pipelined(s, n, ppn, p, chunks=None)
+
+
+def cost_psum(s: float, n: int, ppn: int, p: MachineParams) -> float:
+    """Native single-level reduce over the joint grid — the fallback
+    engine's price.  Modeled as node-agnostic recursive doubling over all
+    ``n*ppn`` chips (what XLA's psum costs at worst on a flat ring/tree).
+    """
+    if n <= 1:
+        return (p.alpha_l + p.beta_l * s + p.gamma * s) * _log2(ppn)
+    return cost_rd(s, n, ppn, p)
+
+
+
+# The engine registry (``repro_torch.core.comm``) is the single place an
+# engine declares its cost model; ``crossover_bytes`` resolves the ``large``
+# contender there (a plain callable is also accepted).
+def _resolve_large_cost(large):
+    if callable(large):
+        return large
+    from . import comm
+
+    return comm.get_engine(large).cost
+
+
+def crossover_bytes(
+    n: int,
+    ppn: int,
+    p: MachineParams,
+    lo: float = 8.0,
+    hi: float = 1 << 22,
+    large: str = "mla",
+) -> float:
+    """Smallest message size where the ``large``-regime algorithm becomes
+    cheaper than NAP (the paper measured ~2048 B vs SMP at 32 768
+    processes).  ``large="mla"`` yields the dispatcher's NAP↔MLA switch
+    point.  ``large`` is a registered engine name (its declared cost
+    model is used) or a bare cost callable.
+
+    Returns ``math.inf`` when NAP is still cheaper at the search cap
+    ``hi`` — there is no crossover in the searched range, and callers
+    (``comm.Topology.crossover_bytes``, the grad-sync planner) treat
+    the saturated result as "latency regime everywhere" instead of
+    mistaking the cap for a real 4 MiB switch point.
+    """
+    cost_large = _resolve_large_cost(large)
+    if cost_nap(lo, n, ppn, p) > cost_large(lo, n, ppn, p):
+        return lo
+    if cost_nap(hi, n, ppn, p) <= cost_large(hi, n, ppn, p):
+        return math.inf
+    while hi / lo > 1.01:
+        mid = math.sqrt(lo * hi)
+        if cost_nap(mid, n, ppn, p) <= cost_large(mid, n, ppn, p):
+            lo = mid
+        else:
+            hi = mid
+    return math.sqrt(lo * hi)
+
+
+def dispatched_allreduce_cost(
+    s: float, n: int, ppn: int, p: MachineParams
+) -> float:
+    """Modeled cost of one ``s``-byte allreduce under the auto dispatch.
+
+    Mirrors ``collectives.select_algorithm``'s regime choice in pure
+    closed form: NAP at or below the NAP↔MLA crossover, the best of
+    plain/pipelined MLA above it, single-domain costs on degenerate
+    grids.  This is the per-bucket cost term the bucket-size optimum
+    integrates over, so the planner and the dispatcher price a bucket
+    identically.
+    """
+    if n <= 1:
+        # single-level: intra recursive doubling only
+        return (p.alpha_l + p.beta_l * s + p.gamma * s) * _log2(ppn)
+    if ppn <= 1:
+        # degenerate lanes: RS+AG over the slow domain (the mla fallback)
+        return cost_mla(s, n, 1, p)
+    xo = crossover_bytes(n, ppn, p, large="mla")
+    if s <= xo:
+        return cost_nap(s, n, ppn, p)
+    return cost_mla_pipelined(s, n, ppn, p, chunks=None)
+
+
+@functools.lru_cache(maxsize=None)
+def _optimal_bucket_count(
+    total_bytes: float,
+    n: int,
+    ppn: int,
+    p: MachineParams,
+    compute_seconds: float | None,
+    max_buckets: int,
+) -> int:
+    best_k, best_t = 1, math.inf
+    t_one = dispatched_allreduce_cost(total_bytes, n, ppn, p)
+    tc = compute_seconds if compute_seconds is not None else t_one
+    for k in range(1, max(1, max_buckets) + 1):
+        s = total_bytes / k
+        t = dispatched_allreduce_cost(s, n, ppn, p)
+        free = 0.0
+        for i in range(k):
+            ready = (i + 1) * tc / k
+            free = max(free, ready) + t
+        if free < best_t - 1e-15:
+            best_k, best_t = k, free
+    return best_k
+
+
+def optimal_bucket_bytes(
+    total_bytes: float,
+    n: int,
+    ppn: int,
+    p: MachineParams,
+    *,
+    compute_seconds: float | None = None,
+    max_buckets: int = 64,
+) -> float:
+    """Model-optimal grad-sync bucket size for backward/comm overlap.
+
+    Backward is modeled as producing gradient bytes at a uniform rate
+    over ``compute_seconds`` (default: the unbucketed sync time — the
+    comm ≈ compute regime where bucketing matters most), and the network
+    as one port executing bucket allreduces back to back.  With ``k``
+    equal buckets, bucket ``i`` becomes ready at ``(i+1)/k * T_c`` and
+    the makespan follows the serial-port recurrence
+
+        free_i = max(free_{i-1}, ready_i) + T_allreduce(S/k)
+
+    More buckets expose more overlap but pay the per-bucket alpha bill
+    ``k`` times; fewer serialize the whole sync behind the last gradient.
+    The optimum is found by evaluating ``k = 1..max_buckets`` exactly
+    (each candidate is a closed-form sum — cheap) under the same
+    dispatch costs the executor will incur per bucket.
+    """
+    if total_bytes <= 0:
+        return float(total_bytes)
+    k = _optimal_bucket_count(
+        float(total_bytes), n, ppn, p, compute_seconds, max_buckets
+    )
+    return float(total_bytes) / k

@@ -1,0 +1,96 @@
+"""Shared layer primitives: RMS norm, dense projections, GLU MLP, RoPE.
+
+The port of the dense-family parts of ``repro/models/layers.py``.  A
+projection keeps its input dtype (bf16 in, bf16 out, f32 accumulation in
+cuBLAS); :func:`head_dot` gives float32 logits from float32 products of
+the (possibly bf16) inputs, as the reference's
+``preferred_element_type=float32`` does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "rms_norm",
+    "init_dense",
+    "dense",
+    "head_dot",
+    "glu_mlp",
+    "init_glu_mlp",
+    "rope_angles",
+    "apply_rope",
+]
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
+    return out.to(dtype)
+
+
+def init_dense(shape, dtype, *, generator, device, scale: float | None = None):
+    """Normal init scaled by ``1/sqrt(d_in)`` (``shape[-2]``); any leading
+    dims are stacked layers."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None):
+    y = torch.matmul(x, w)
+    if b is not None:
+        y = y + b
+    return y
+
+
+def head_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Projection with float32 output (logits)."""
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+_ACTS = {"silu": F.silu, "gelu": F.gelu, "relu": F.relu}
+
+
+def init_glu_mlp(d_model: int, d_ff: int, dtype, *, lead=(), generator,
+                 device):
+    mk = lambda shape: init_dense(lead + shape, dtype, generator=generator,
+                                  device=device)
+    return {
+        "w_gate": mk((d_model, d_ff)),
+        "w_up": mk((d_model, d_ff)),
+        "w_down": mk((d_ff, d_model)),
+    }
+
+
+def glu_mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    h = _ACTS[act](dense(x, params["w_gate"])) * dense(x, params["w_up"])
+    return dense(h, params["w_down"])
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """cos/sin tables for positions (..., S) -> (..., S, head_dim/2)."""
+    half = head_dim // 2
+    freq = 1.0 / (
+        theta ** (torch.arange(0, half, dtype=torch.float32,
+                               device=positions.device) / half)
+    )
+    ang = positions.to(torch.float32)[..., None] * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Rotate q/k: x (B, S, H, hd); positions (B, S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    cos, sin = rope_angles(positions, hd, theta)
+    cos, sin = cos[..., None, :], sin[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,226 @@
+"""Public model API: ``build_model(cfg, ...) -> Model`` (an ``nn.Module``).
+
+The port of the dense decoder path of ``repro/models/model.py``.  The
+parameters are a tree with the reference's keys and shapes::
+
+    {"embedding": (V, D), "final_norm": (D,),
+     "stack": {"sub0": {"ffn": {"w_down", "w_gate", "w_up"},
+                        "mixer": {"w_k", "w_o", "w_q", "w_v"},
+                        "norm1", "norm2"}}}       # leaves (n_super, ...)
+
+held by :class:`Model` as ``nn.Parameter``s; :meth:`Model.leaves` lists
+them in the order ``jax.tree.flatten`` lists the reference's (sorted keys).
+The training loss is a sequence-chunked cross-entropy with float32
+logits through the tied head.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import transformer as tfm
+from .layers import head_dot, rms_norm
+from .. import tree as tree_util
+from ..device import resolve_device
+
+__all__ = [
+    "Model",
+    "build_model",
+    "init_params",
+    "params_from_jax",
+    "params_to_numpy",
+]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(cfg) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def init_params(cfg, *, generator: torch.Generator | None = None,
+                device=None) -> dict:
+    """Random parameters from ``generator`` (``device="meta"`` gives the
+    shapes and dtypes only, with no memory)."""
+    device = torch.device("meta") if str(device) == "meta" else (
+        resolve_device(device)
+    )
+    if device.type == "meta":
+        generator = None
+    elif generator is None:
+        raise ValueError("init_params needs an explicit torch.Generator")
+    dtype = _dtype(cfg)
+    emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=generator,
+                      device=device, dtype=torch.float32)
+    params = {
+        "embedding": (emb * 0.02).to(dtype),
+        "stack": tfm.init_stack(cfg, dtype, generator=generator,
+                                device=device),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                  device=device),
+    }
+    if not cfg.tie_embeddings:
+        head = torch.randn((cfg.d_model, cfg.vocab_size), generator=generator,
+                           device=device, dtype=torch.float32)
+        params["lm_head"] = (head * 0.02).to(dtype)
+    return params
+
+
+class _Node(nn.Module):
+    """One dict level of the parameter tree (children in sorted order)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key in sorted(tree):
+            v = tree[key]
+            if isinstance(v, dict):
+                self.add_module(key, _Node(v))
+            else:
+                self.register_parameter(key, nn.Parameter(v))
+
+    def tree(self) -> dict:
+        out = {k: p for k, p in self._parameters.items()}
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+
+class Model(nn.Module):
+    """The dense decoder LM; ``forward(batch)`` returns ``(loss, metrics)``."""
+
+    def __init__(self, cfg, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.root = _Node(params)
+
+    def params(self) -> dict:
+        """The parameter tree (the ``nn.Parameter``s themselves)."""
+        return self.root.tree()
+
+    def leaves(self) -> list[nn.Parameter]:
+        """The parameters in ``jax.tree.flatten`` order of the reference."""
+        return tree_util.leaves(self.params())
+
+    def forward(self, batch: dict):
+        cfg = self.cfg
+        p = self.params()
+        tokens = batch["tokens"]
+        hidden = _final_hidden(p, tokens, cfg)
+        labels = batch.get("labels")
+        if labels is None:
+            labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32,
+                              device=labels.device)
+        ce = _chunked_loss(hidden, _head_weights(p, cfg), labels, mask)
+        return ce, {"loss": ce, "ce": ce}
+
+
+def _embed_tokens(params, tokens, cfg):
+    return params["embedding"][tokens].to(_dtype(cfg))
+
+
+def _head_weights(params, cfg):
+    if cfg.tie_embeddings:
+        return params["embedding"].T  # (D, V)
+    return params["lm_head"]
+
+
+def _final_hidden(params, tokens, cfg):
+    """Embed -> stack -> final norm."""
+    B, S = tokens.shape
+    x = _embed_tokens(params, tokens, cfg)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x = tfm.stack_apply(params["stack"], x, cfg=cfg, positions=positions)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _chunked_loss(hidden, head_w, labels, mask, chunk=512):
+    """CE over sequence chunks; logits (B, chunk, V) only, never (B, S, V)."""
+    B, S, D = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = S
+    nll = cnt = None
+    for i in range(0, S, chunk):
+        h = hidden[:, i : i + chunk]
+        y = labels[:, i : i + chunk]
+        m = mask[:, i : i + chunk]
+        logits = head_dot(h, head_w.to(h.dtype))
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y[..., None])[..., 0]
+        part, c = ((logz - gold) * m).sum(), m.sum()
+        nll = part if nll is None else nll + part
+        cnt = c if cnt is None else cnt + c
+    return nll / torch.clamp_min(cnt, 1.0)
+
+
+def build_model(cfg, params: dict | None = None, *,
+                generator: torch.Generator | None = None,
+                device=None) -> Model:
+    """The model on ``device`` (``cuda`` unless asked otherwise): with a
+    copy of ``params`` (e.g. from :func:`params_from_jax`) or freshly
+    initialised from ``generator``."""
+    device = resolve_device(device)
+    if params is None:
+        params = init_params(cfg, generator=generator, device=device)
+    else:
+        # a copy: the model updates its parameters in place
+        params = tree_util.tree_map(
+            lambda t: t.detach().to(device, copy=True), params
+        )
+    return Model(cfg, params).to(device)
+
+
+# ---------------------------------------------------------------------------
+# weights carried across from the JAX package
+# ---------------------------------------------------------------------------
+
+
+def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A tensor that owns a copy of ``a`` (the model updates its
+    parameters in place and must never write into the caller's arrays)."""
+    a = np.array(a, copy=True, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_jax(tree_of_numpy: dict, cfg, device=None) -> dict:
+    """The port's parameter tree from the reference's ``model.init`` tree
+    (as numpy arrays).  Keys, shapes and dtypes must match this config."""
+    device = resolve_device(device)
+    want_leaves, want_def = tree_util.flatten(init_params(cfg, device="meta"))
+    got_leaves, got_def = tree_util.flatten(tree_of_numpy)
+    if got_def != want_def:
+        raise ValueError(
+            "parameter tree structure differs from the port's for "
+            f"{cfg.name}"
+        )
+    out = []
+    for w, a in zip(want_leaves, got_leaves):
+        t = _tensor_from_numpy(np.asarray(a))
+        if tuple(t.shape) != tuple(w.shape) or t.dtype != w.dtype:
+            raise ValueError(
+                f"leaf {tuple(t.shape)} {t.dtype} != expected "
+                f"{tuple(w.shape)} {w.dtype}"
+            )
+        out.append(t.to(device))
+    return tree_util.unflatten(want_def, out)
+
+
+def params_to_numpy(params) -> dict:
+    """Numpy tree of a parameter tree or a :class:`Model` (bf16 leaves come
+    back as float32, which holds them exactly)."""
+    if isinstance(params, Model):
+        params = params.params()
+
+    def to_np(t):
+        t = t.detach().to("cpu")
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.numpy().copy()
+
+    return tree_util.tree_map(to_np, params)

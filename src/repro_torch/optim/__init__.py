@@ -1,0 +1,12 @@
+from .adamw import AdamWState, adamw_init, adamw_update, global_norm
+from .error_feedback import ef_init
+from .schedules import make_schedule
+
+__all__ = [
+    "AdamWState",
+    "adamw_init",
+    "adamw_update",
+    "global_norm",
+    "ef_init",
+    "make_schedule",
+]

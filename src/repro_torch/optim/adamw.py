@@ -1,0 +1,88 @@
+"""AdamW with global-norm clipping and a configurable moment dtype.
+
+The port of ``repro/optim/adamw.py``.  Parameters and moments are updated
+in place (the reference returns new arrays; the port keeps one copy of
+each to save device memory).  Every scalar the update divides by is a
+0-dim tensor on the parameters' device, so the division is IEEE on the
+card as on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import tree as tree_util
+
+__all__ = ["AdamWState", "adamw_init", "adamw_update", "global_norm"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class AdamWState(NamedTuple):
+    step: int
+    mu: list
+    nu: list
+
+
+def adamw_init(params, *, moment_dtype: str = "float32") -> AdamWState:
+    """Zero moments, one per parameter leaf (tree order)."""
+    md = _DTYPES[moment_dtype]
+    leaves = tree_util.leaves(params)
+    return AdamWState(
+        step=0,
+        mu=[torch.zeros(p.shape, dtype=md, device=p.device) for p in leaves],
+        nu=[torch.zeros(p.shape, dtype=md, device=p.device) for p in leaves],
+    )
+
+
+def global_norm(grads) -> torch.Tensor:
+    sq = [
+        torch.sum(torch.square(g.to(torch.float32)))
+        for g in tree_util.leaves(grads)
+    ]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+@torch.no_grad()
+def adamw_update(
+    grads,
+    state: AdamWState,
+    params,
+    *,
+    lr,
+    betas=(0.9, 0.95),
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+    grad_clip: float | None = 1.0,
+):
+    """Update ``params`` and the moments in place; returns
+    ``(new_state, metrics)``."""
+    b1, b2 = betas
+    flat_p = tree_util.leaves(params)
+    flat_g = tree_util.leaves(grads)
+    gnorm = global_norm(flat_g)
+    dev = gnorm.device
+    f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
+    if grad_clip is not None:
+        scale = torch.minimum(
+            f32(1.0), f32(grad_clip) / torch.maximum(gnorm, f32(1e-12))
+        )
+        flat_g = [g * scale.to(g.dtype) for g in flat_g]
+    step = state.step + 1
+    c1 = 1.0 - torch.pow(f32(b1), f32(step))
+    c2 = 1.0 - torch.pow(f32(b2), f32(step))
+    lr_t = f32(float(lr))
+    for g, m, v, p in zip(flat_g, state.mu, state.nu, flat_p):
+        g32 = g.to(torch.float32)
+        m32 = m.to(torch.float32) * b1 + g32 * (1 - b1)
+        v32 = v.to(torch.float32) * b2 + torch.square(g32) * (1 - b2)
+        update = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
+        p32 = p.to(torch.float32)
+        if p.dim() >= 2:
+            update = update + weight_decay * p32
+        p.copy_(p32 - lr_t * update)
+        m.copy_(m32)
+        v.copy_(v32)
+    return AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm}

@@ -1,0 +1,36 @@
+"""Error-feedback residual state for compressed gradient transport.
+
+The port of ``repro/optim/error_feedback.py``.  Each rank keeps a float32
+residual per gradient leaf, adds it to its local gradient before the
+quantised sync (``c = g + r``) and stores back its share of what the wire
+could not represent (measured by
+:func:`repro_torch.core.grad_sync._compressed_fused_allreduce`).  The
+residual is per-rank state: never averaged, never replicated.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from .. import tree as tree_util
+
+__all__ = ["ef_init"]
+
+
+def ef_init(params: Any, *, group: int | None = None) -> Any:
+    """Zero residual tree matching ``params`` (float32 leaves).
+
+    With ``group=G`` every leaf gains a leading ``G`` axis: the global form
+    of the reference's train state (one slice per rank).  A rank of the
+    port holds its own slice only, so its train step takes ``group=None``.
+    """
+
+    def zeros(p):
+        shape = tuple(p.shape)
+        if group is not None:
+            shape = (int(group),) + shape
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+    return tree_util.tree_map(zeros, params)

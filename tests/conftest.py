@@ -13,3 +13,10 @@ module imports ``repro.core.comm``.
 import os
 
 os.environ.setdefault("REPRO_VERIFY_ON_REGISTER", "1")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card; skips with a reason where there is none",
+    )

@@ -1,0 +1,89 @@
+"""Guards of the port: it imports neither JAX nor the JAX package, and its
+entry points run on the card unless the caller asks for the CPU."""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import MINICPM_2B, OptimizerConfig, reduced
+from repro_torch.core import CommPolicy, Topology
+from repro_torch.launch import init_train_state, make_dp_train_step
+from repro_torch.models import build_model, params_from_jax
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path) -> list[str]:
+    mods = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.append(node.module or "")
+    return mods
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES]
+)
+def test_no_jax_or_reference_import(path):
+    bad = [
+        m for m in _imported_modules(path)
+        if m.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guard_sees_every_module():
+    assert len(PORT_FILES) >= 25
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+            / "transport.cu").is_file()
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_is_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert repro_torch.resolve_device().type == "cuda"
+    assert repro_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    cfg = reduced(MINICPM_2B)
+    opt = OptimizerConfig()
+    pol = CommPolicy(compress_bits=8)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg, generator=gen)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_dp_train_step(cfg, opt, Topology.from_world(1, 1), pol)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(cfg, opt, pol, generator=gen)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({}, cfg)
+
+
+def test_entry_points_run_on_cpu_when_asked(no_cuda):
+    cfg = reduced(MINICPM_2B)
+    opt = OptimizerConfig()
+    pol = CommPolicy(compress_bits=8)
+    gen = torch.Generator().manual_seed(0)
+    state = init_train_state(cfg, opt, pol, generator=gen, device="cpu")
+    assert all(p.device.type == "cpu" for p in state["model"].leaves())
+    step = make_dp_train_step(cfg, opt, Topology.from_world(1, 1), pol,
+                              device="cpu")
+    assert step.plan.num_buckets >= 1

@@ -1,0 +1,148 @@
+"""The port's transport plain versions against the JAX package's kernels.
+
+Same inputs (numpy, from seeds) through ``repro.kernels.transport`` — the
+jnp oracle (``impl="xla"``) over the full sweep, the Pallas kernel in
+interpret mode on a subset — and through ``repro_torch.kernels.transport``
+on CPU tensors (its plain version).  Wire bytes must be bit-identical and
+dequantized values exactly equal.  The CUDA kernels themselves are held
+against the same plain versions on the card by ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from hypothesis import given, settings, strategies as st
+
+from repro.kernels import transport as jt
+from repro_torch.kernels import transport as tt
+
+
+def _case(seed, bits, L, base, R, row_stride, cols):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((R, cols)) * rng.uniform(0, 8, (R, cols)))
+    x = x.astype(np.float32)
+    span = base + (R - 1) * row_stride + cols + 1
+    cuts = rng.choice(np.arange(1, span), size=L - 1, replace=False)
+    offsets = (0,) + tuple(sorted(int(c) for c in cuts))
+    qmax = 2 ** (bits - 1) - 1
+    # scales at and below absmax/qmax: both rounding and clipping happen
+    scales = (np.abs(x).max() / qmax * rng.uniform(0.25, 1.25, L)).astype(
+        np.float32
+    )
+    return x, scales, offsets
+
+
+def _both(x, scales, offsets, bits, base, row_stride, cols, impl):
+    kw = dict(offsets=offsets, bits=bits, base=base, row_stride=row_stride)
+    wj = np.asarray(
+        jt.quantize_pack(jnp.asarray(x), jnp.asarray(scales), impl=impl, **kw)
+    )
+    wt = tt.quantize_pack(torch.from_numpy(x), torch.from_numpy(scales), **kw)
+    assert wt.dtype == {4: torch.uint8}.get(bits, torch.int8)
+    np.testing.assert_array_equal(wt.numpy(), wj)
+    # dequantize: the quantized bytes and every other byte value
+    rng = np.random.default_rng(bits * 7 + len(offsets))
+    noise = rng.integers(0, 256, wj.shape, dtype=np.uint8).view(wj.dtype)
+    for w in (wj, noise):
+        dj = np.asarray(jt.unpack_dequantize(
+            jnp.asarray(w), jnp.asarray(scales), cols=cols, impl=impl, **kw
+        ))
+        dt = tt.unpack_dequantize(
+            torch.from_numpy(np.array(w)),
+            torch.from_numpy(scales), cols=cols, **kw,
+        )
+        assert dt.shape == dj.shape
+        np.testing.assert_array_equal(dt.numpy(), dj)
+
+
+@pytest.mark.parametrize("rows", [(1, 0), (3, 0), (3, "B")])
+@pytest.mark.parametrize("base", [0, 37])
+@pytest.mark.parametrize("L", [1, 3, 5])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_plain_matches_jax_oracle(bits, L, base, rows):
+    R, rs = rows
+    cols = 300  # ragged: not a multiple of the 256-element block
+    rs = cols if rs == "B" else rs
+    x, scales, offsets = _case(bits * 100 + L, bits, L, base, R, rs, cols)
+    _both(x, scales, offsets, bits, base, rs, cols, impl="xla")
+
+
+@pytest.mark.parametrize("L", [1, 3])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_plain_matches_pallas_interpret(bits, L):
+    R, cols, base = 2, 520, 11
+    x, scales, offsets = _case(bits + L, bits, L, base, R, cols, cols)
+    _both(x, scales, offsets, bits, base, cols, cols, impl="pallas")
+
+
+@settings(max_examples=25, deadline=None)
+@given(
+    bits=st.sampled_from([2, 3, 4, 5, 8]),
+    L=st.integers(1, 6),
+    base=st.integers(0, 1000),
+    R=st.integers(1, 3),
+    strided=st.booleans(),
+    cols=st.integers(1, 700),
+    seed=st.integers(0, 2**16),
+)
+def test_plain_matches_jax_oracle_fuzz(bits, L, base, R, strided, cols, seed):
+    rs = cols if strided else 0
+    x, scales, offsets = _case(seed, bits, L, base, R, rs, cols)
+    _both(x, scales, offsets, bits, base, rs, cols, impl="xla")
+
+
+def test_wrapper_rejects_bad_inputs():
+    x = torch.zeros((1, 256))
+    s = torch.ones(1)
+    with pytest.raises(ValueError):
+        tt.quantize_pack(x.double(), s, offsets=(0,), bits=8)
+    with pytest.raises(ValueError):
+        tt.quantize_pack(x, s, offsets=(0, 1), bits=8)
+    with pytest.raises(ValueError):
+        tt.quantize_pack(x, s, offsets=(0,), bits=9)
+    with pytest.raises(ValueError):
+        tt.unpack_dequantize(
+            torch.zeros((1, 100), dtype=torch.int8), s, offsets=(0,),
+            bits=8, cols=100,
+        )
+    with pytest.raises(ValueError):
+        tt.unpack_dequantize(
+            torch.zeros((1, 256), dtype=torch.int8), s, offsets=(0,),
+            bits=4, cols=100,
+        )
+
+
+def test_cpu_route_launches_no_kernel():
+    tt.reset_launch_counts()
+    x = torch.randn(2, 300)
+    s = torch.ones(1)
+    w = tt.quantize_pack(x, s, offsets=(0,), bits=4)
+    tt.unpack_dequantize(w, s, offsets=(0,), bits=4, cols=300)
+    assert tt.LAUNCHES == {"quantize_pack": 0, "unpack_dequantize": 0}
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    rng = np.random.default_rng(0)
+    for bits in (2, 3, 4, 8):
+        x, scales, offsets = _case(bits, bits, 3, 5, 4, 700, 700)
+        xc = torch.from_numpy(x).cuda()
+        sc = torch.from_numpy(scales).cuda()
+        kw = dict(offsets=offsets, bits=bits, base=5, row_stride=700)
+        wk = tt.quantize_pack(xc, sc, **kw)
+        wp = tt.quantize_pack(xc, sc, impl="plain", **kw)
+        assert torch.equal(wk, wp)
+        noise = torch.from_numpy(
+            rng.integers(0, 256, tuple(wk.shape), dtype=np.uint8)
+        ).cuda().view(wk.dtype)
+        for w in (wk, noise):
+            assert torch.equal(
+                tt.unpack_dequantize(w, sc, cols=700, **kw),
+                tt.unpack_dequantize(w, sc, cols=700, impl="plain", **kw),
+            )
