@@ -1,5 +1,13 @@
-"""Hand-written Hopper kernels of the port, each beside its plain version."""
+"""Hand-written Hopper kernels of the port, each beside its plain version.
 
-from . import ref, transport
+The three attention / scan wrappers are exported here, as the reference's
+``repro.kernels`` exports them (which shadows their submodules of the same
+name as attributes of this package; import the submodules by their full
+name).
+"""
 
-__all__ = ["ref", "transport"]
+from . import ops, ref, transport
+from .ops import flash_attention, mamba_scan, rwkv6_scan
+
+__all__ = ["flash_attention", "mamba_scan", "rwkv6_scan", "ops", "ref",
+           "transport"]

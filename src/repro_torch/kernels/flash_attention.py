@@ -1,0 +1,150 @@
+"""Blockwise online-softmax attention (CUDA, Hopper).
+
+The port of ``repro/kernels/flash_attention.py::flash_attention_pallas``
+(and of the GQA head expansion in ``repro/kernels/ops.py``): causal
+masking, a sliding window (``0 <= q - k < window`` with causal,
+``q - k < window`` without), the tanh soft-cap ``c * tanh(s / c)`` applied
+before the mask, and scale ``1/sqrt(hd)``.  The kernel
+(``csrc/flash_attention.cu``) reads the (B, S, H, hd) layout directly and
+maps query head h to KV head ``h // (H // KV)``, so neither the head
+flattening nor the GQA repeat is materialised.
+
+Routing (:func:`._build.use_kernel`): a CUDA tensor launches the kernel, a
+CPU tensor takes the plain version :func:`.ref.flash_attention_ref`;
+``impl="plain"`` routes a CUDA tensor to the plain version (checks only).
+Nothing falls back: a build or launch failure raises.  Launches are counted
+in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build, ref
+
+__all__ = ["flash_attention", "flash_attention_bshd", "HEAD_DIMS",
+           "LAUNCHES", "reset_launch_counts"]
+
+#: head widths the kernel is compiled for
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: kernel launches, counted where the kernel is launched
+LAUNCHES: dict[str, int] = {"flash_attention": 0}
+
+_SOURCE = _build.source("flash_attention")
+_LIB: ctypes.CDLL | None = None
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = _build.load(_SOURCE)
+        fn = lib.repro_flash_attention
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 8
+                       + [ctypes.c_float] * 2
+                       + [ctypes.c_int64, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(q, k, v, window, softcap) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(
+            f"q/k/v must be (B, S, H, hd) / (B, S, KV, hd), got "
+            f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}"
+        )
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"q/k/v must share one type of {list(_DTYPES)}, got "
+            f"{q.dtype} {k.dtype} {v.dtype}"
+        )
+    B, S, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[1] != S \
+            or k.shape[3] != hd:
+        raise ValueError(
+            f"k/v {tuple(k.shape)} {tuple(v.shape)} do not fit q "
+            f"{tuple(q.shape)}"
+        )
+    KV = k.shape[2]
+    if KV < 1 or H % KV:
+        raise ValueError(f"H = {H} is not a multiple of KV = {KV}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head width {hd} not in {HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
+
+
+def _plain(q, k, v, causal, window, softcap) -> torch.Tensor:
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    flat = lambda t: t.transpose(1, 2).reshape(B * H, S, hd)
+    of = ref.flash_attention_ref(
+        flat(q), flat(k), flat(v), causal=causal, window=window,
+        softcap=softcap,
+    )
+    return of.reshape(B, H, S, hd).transpose(1, 2)
+
+
+def flash_attention_bshd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """q: (B, S, H, hd); k/v: (B, S, KV, hd) with H % KV == 0.  Returns
+    (B, S, H, hd) in q's type.  The layout of ``repro.kernels.ops``."""
+    _check(q, k, v, window, softcap)
+    if not _build.use_kernel(impl, q, k, v):
+        return _plain(q, k, v, causal, window, softcap)
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    index, stream = _build.stream_args(q)
+    rc = _lib().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, S, H, k.shape[2], hd, _DTYPES[q.dtype], int(bool(causal)),
+        0 if window is None else int(window), 1.0 / math.sqrt(hd),
+        0.0 if softcap is None else float(softcap), index, stream,
+    )
+    _build.check(rc, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """q, k, v: (BH, S, hd) with heads flattened (GQA expanded), as
+    ``flash_attention_pallas`` takes them.  Returns (BH, S, hd) in q's
+    type."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be (BH, S, hd), got {tuple(q.shape)}")
+    out = flash_attention_bshd(
+        q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), causal=causal,
+        window=window, softcap=softcap, impl=impl,
+    )
+    return out.squeeze(2)

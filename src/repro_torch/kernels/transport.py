@@ -15,7 +15,7 @@ clipped to the wire width:
 
 Routing: a CUDA tensor launches the hand-written kernel in
 ``csrc/transport.cu`` (built with ``nvcc`` for ``sm_90a`` at first use into
-``build/repro_torch/`` and loaded with ``ctypes``); a CPU tensor takes the
+``build/repro_torch/`` and loaded with ``ctypes``, by :mod:`._build`); a CPU tensor takes the
 plain version in :mod:`repro_torch.kernels.ref`.  ``impl="plain"`` routes a
 CUDA tensor to the plain version explicitly (checks only).  Nothing falls
 back: a build or launch failure raises.
@@ -27,16 +27,12 @@ show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-from . import ref
+from . import _build, ref
 
 __all__ = [
     "quantize_pack",
@@ -54,14 +50,7 @@ DEFAULT_BLOCK = 256
 #: kernel launches per wrapper, counted where the kernel is launched
 LAUNCHES: dict[str, int] = {"quantize_pack": 0, "unpack_dequantize": 0}
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "transport.cu"
-_REPO_ROOT = Path(__file__).resolve().parents[3]
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
-_IMPLS = ("auto", "plain")
+_SOURCE = _build.source("transport")
 
 
 def reset_launch_counts() -> None:
@@ -85,48 +74,10 @@ def wire_itemsize(bits: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def build_dir() -> Path:
-    return _REPO_ROOT / "build" / "repro_torch"
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME")
-    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
-        return str(Path(cuda_home) / "bin" / "nvcc")
-    found = shutil.which("nvcc") or (
-        "/usr/local/cuda/bin/nvcc"
-        if Path("/usr/local/cuda/bin/nvcc").exists() else None
-    )
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the "
-            "transport kernels are built from source at first use"
-        )
-    return found
-
-
 def build_library() -> Path:
     """Compile ``csrc/transport.cu`` into a shared library (once per
     source hash) and return its path.  Raises on a compiler error."""
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    out = build_dir() / f"libtransport-{digest[:16]}.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed on {_SOURCE.name} (exit {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    return _build.build(_SOURCE)[_SOURCE]
 
 
 _LIB: ctypes.CDLL | None = None
@@ -136,7 +87,7 @@ _OFFSETS_ON_DEVICE: dict[tuple, torch.Tensor] = {}
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build_library()))
+        lib = _build.load(_SOURCE)
         args = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
         for fn in (lib.repro_quantize_pack, lib.repro_unpack_dequantize):
             fn.argtypes = args
@@ -160,16 +111,14 @@ def _device_offsets(offsets: tuple[int, ...], device) -> torch.Tensor:
 
 def _launch(fn_name, src, out, scales, offsets, rows, cols, base, row_stride,
             bits):
-    dev = src.device
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    index, stream = _build.stream_args(src)
     rc = getattr(_lib(), fn_name)(
         src.data_ptr(), out.data_ptr(),
-        _device_offsets(offsets, dev).data_ptr(), scales.data_ptr(),
+        _device_offsets(offsets, src.device).data_ptr(), scales.data_ptr(),
         len(offsets), rows, cols, int(base), int(row_stride), int(bits),
-        index, torch.cuda.current_stream(dev).cuda_stream,
+        index, stream,
     )
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")
+    _build.check(rc, fn_name)
 
 
 # ---------------------------------------------------------------------------
@@ -199,25 +148,13 @@ def _use_kernel(t: torch.Tensor, scales: torch.Tensor, impl: str,
                 block: int) -> bool:
     """True for the CUDA kernel, False for the plain version; raises on a
     tensor the kernel does not take."""
-    if impl not in _IMPLS:
-        raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
-    if scales.device != t.device:
-        raise ValueError(
-            f"scales on {scales.device} but data on {t.device}"
-        )
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"no transport kernel for device {t.device}")
-    if impl == "plain":
+    if not _build.use_kernel(impl, t, scales):
         return False
     if block != DEFAULT_BLOCK:
         raise ValueError(
             f"the CUDA kernels are built for block={DEFAULT_BLOCK}, "
             f"got {block}"
         )
-    if not t.is_contiguous() or not scales.is_contiguous():
-        raise ValueError("the CUDA kernels take contiguous tensors")
     return True
 
 

@@ -49,6 +49,13 @@ def test_guard_sees_every_module():
             / "transport.cu").is_file()
 
 
+def test_guard_sees_the_kernel_modules():
+    kernels = ROOT / "src" / "repro_torch" / "kernels"
+    for name in ("_build", "ops", "flash_attention", "rwkv6_scan",
+                 "mamba_scan", "transport", "ref"):
+        assert kernels / f"{name}.py" in PORT_FILES
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

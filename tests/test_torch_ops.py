@@ -1,0 +1,314 @@
+"""The port's attention and scan wrappers against the JAX package's kernels.
+
+Same inputs (numpy, from seeds) through ``repro.kernels.ops`` twice — the
+Pallas kernel in interpret mode (``impl="pallas"`` on the CPU) and the jnp
+oracle (``impl="xla"``) — and through ``repro_torch.kernels.ops`` on CPU
+tensors (its plain versions, with the GQA mapping and the head layout of
+the wrappers).  Tolerances are those of ``tests/test_kernels.py``: 2e-5
+for float32 and 2e-2 for bf16, compared in float32.  The CUDA kernels are
+held against the same plain versions on the card by ``chip_smoke.py``
+(phases ``ops_kernels`` and ``ops_full_width``).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.rwkv6_scan import rwkv6_scan_pallas
+from repro_torch.kernels import _build, ops, ref
+
+# the package exports the wrappers under their submodules' names
+tfa = importlib.import_module("repro_torch.kernels.flash_attention")
+trw = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+tms = importlib.import_module("repro_torch.kernels.mamba_scan")
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+_NP = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _arr(rng, shape, dtype, scale=0.5):
+    return (rng.standard_normal(shape) * scale).astype(np.float32).astype(
+        _NP[dtype]
+    )
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(a.astype(np.float32)).to(_TORCH[dtype])
+
+
+def _close(got: torch.Tensor, want, dtype):
+    np.testing.assert_allclose(
+        got.to(torch.float32).numpy(),
+        np.asarray(want).astype(np.float32),
+        rtol=TOL[dtype], atol=TOL[dtype],
+    )
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,S,H,KV,hd",
+    [
+        (1, 100, 4, 2, 32),   # ragged S, GQA 4 -> 2
+        (1, 128, 2, 2, 64),
+        (1, 64, 2, 1, 128),   # GQA 2 -> 1
+    ],
+)
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None),
+    (True, 32, None),
+    (True, None, 30.0),
+    (False, None, None),
+])
+def test_flash_attention_matches_jax(B, S, H, KV, hd, causal, window,
+                                     softcap, dtype):
+    rng = np.random.default_rng(B * S + hd + H)
+    q = _arr(rng, (B, S, H, hd), dtype)
+    k = _arr(rng, (B, S, KV, hd), dtype)
+    v = _arr(rng, (B, S, KV, hd), dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ops.flash_attention(
+        _torch(q, dtype), _torch(k, dtype), _torch(v, dtype), **kw
+    )
+    assert got.shape == (B, S, H, hd) and got.dtype == _TORCH[dtype]
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    for impl in ("pallas", "xla"):
+        want = jops.flash_attention(
+            jq, jk, jv, impl=impl, block_q=64, block_k=64, **kw
+        )
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("window", [None, 20])
+def test_flash_attention_flat_layout_matches_pallas(window):
+    """The (BH, S, hd) form against ``flash_attention_pallas`` itself."""
+    rng = np.random.default_rng(7)
+    q, k, v = (_arr(rng, (3, 72, 32), "float32") for _ in range(3))
+    got = tfa.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        window=window, softcap=50.0,
+    )
+    want = flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=window,
+        softcap=50.0, block_q=32, block_k=32, interpret=True,
+    )
+    _close(got, want, "float32")
+
+
+# ---------------------------------------------------------------------------
+# rwkv6 scan
+# ---------------------------------------------------------------------------
+
+
+def _rwkv_inputs(rng, shape, dtype):
+    r, k, v = (_arr(rng, shape, dtype) for _ in range(3))
+    w = (1.0 / (1.0 + np.exp(-rng.standard_normal(shape)))).astype(
+        np.float32).astype(_NP[dtype])  # decay in (0, 1)
+    return r, k, v, w
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,S,H,hd", [(1, 100, 2, 32), (2, 64, 2, 16), (1, 40, 1, 64)]
+)
+def test_rwkv6_scan_matches_jax(B, S, H, hd, dtype):
+    rng = np.random.default_rng(B + S + hd)
+    r, k, v, w = _rwkv_inputs(rng, (B, S, H, hd), dtype)
+    u = (rng.standard_normal((H, hd)) * 0.1).astype(np.float32)
+    got = ops.rwkv6_scan(
+        *(_torch(a, dtype) for a in (r, k, v, w)), torch.from_numpy(u)
+    )
+    assert got.shape == (B, S, H, hd) and got.dtype == torch.float32
+    j = [jnp.asarray(a) for a in (r, k, v, w, u)]
+    for impl in ("pallas", "xla"):
+        _close(got, jops.rwkv6_scan(*j, impl=impl, chunk=64), dtype)
+
+
+def test_rwkv6_scan_flat_layout_matches_pallas():
+    """The (BH, S, hd) form, with one bonus row per (batch, head)."""
+    rng = np.random.default_rng(11)
+    r, k, v, w = _rwkv_inputs(rng, (3, 50, 16), "float32")
+    u = (rng.standard_normal((3, 16)) * 0.1).astype(np.float32)
+    got = trw.rwkv6_scan(*(torch.from_numpy(a) for a in (r, k, v, w, u)))
+    want = rwkv6_scan_pallas(
+        *(jnp.asarray(a) for a in (r, k, v, w, u)), chunk=16, interpret=True
+    )
+    _close(got, want, "float32")
+
+
+# ---------------------------------------------------------------------------
+# mamba scan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,S,d,N", [(2, 50, 40, 4), (1, 70, 40, 16), (1, 64, 96, 8)]
+)
+def test_mamba_scan_matches_jax(B, S, d, N, dtype):
+    rng = np.random.default_rng(B * S + d + N)
+    x = _arr(rng, (B, S, d), dtype)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, d)))).astype(
+        np.float32).astype(_NP[dtype])  # softplus: dt > 0
+    A = -np.exp(rng.standard_normal((d, N)) * 0.5).astype(np.float32)
+    Bm = _arr(rng, (B, S, N), dtype)
+    Cm = _arr(rng, (B, S, N), dtype)
+    got = ops.mamba_scan(
+        _torch(x, dtype), _torch(dt, dtype), torch.from_numpy(A),
+        _torch(Bm, dtype), _torch(Cm, dtype),
+    )
+    assert got.shape == (B, S, d) and got.dtype == torch.float32
+    j = [jnp.asarray(a) for a in (x, dt, A, Bm, Cm)]
+    for impl in ("pallas", "xla"):
+        # ragged tiles in the reference: chunk 16 over S, block 32 over d
+        _close(got, jops.mamba_scan(*j, impl=impl, chunk=16, block_d=32),
+               dtype)
+
+
+# ---------------------------------------------------------------------------
+# guards
+# ---------------------------------------------------------------------------
+
+
+def _flash_args(hd=32, dtype=torch.float32, device="cpu"):
+    return [torch.zeros((1, 8, 2, hd), dtype=dtype, device=device)
+            for _ in range(3)]
+
+
+def _scan_args(N=4, dtype=torch.float32):
+    x = torch.zeros((1, 8, 16), dtype=dtype)
+    BC = torch.zeros((1, 8, N), dtype=dtype)
+    return [x, x.clone(), torch.zeros((16, N)), BC, BC.clone()]
+
+
+def _rwkv_args(hd=16, dtype=torch.float32):
+    return [torch.zeros((1, 8, 2, hd), dtype=dtype) for _ in range(4)] + [
+        torch.zeros((2, hd))]
+
+
+@pytest.mark.parametrize("case", [
+    "device", "meta_device", "dtype", "mixed_dtype", "hd", "impl", "window",
+    "gqa",
+])
+def test_flash_attention_rejects(case):
+    q, k, v = _flash_args()
+    kw = {}
+    if case == "device":
+        k = k.to("meta")
+    elif case == "meta_device":
+        q, k, v = _flash_args(device="meta")
+    elif case == "dtype":
+        q, k, v = _flash_args(dtype=torch.float16)
+    elif case == "mixed_dtype":
+        v = v.to(torch.bfloat16)
+    elif case == "hd":
+        q, k, v = _flash_args(hd=48)
+    elif case == "impl":
+        kw["impl"] = "pallas"
+    elif case == "window":
+        kw["window"] = 0
+    elif case == "gqa":
+        k = v = torch.zeros((1, 8, 3, 32))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("case", [
+    "device", "dtype", "mixed_dtype", "hd", "impl", "u_dtype", "u_shape",
+])
+def test_rwkv6_scan_rejects(case):
+    r, k, v, w, u = _rwkv_args()
+    kw = {}
+    if case == "device":
+        w = w.to("meta")
+    elif case == "dtype":
+        r, k, v, w, u = _rwkv_args(dtype=torch.float16)
+    elif case == "mixed_dtype":
+        k = k.to(torch.bfloat16)
+    elif case == "hd":
+        r, k, v, w, u = _rwkv_args(hd=128)
+    elif case == "impl":
+        kw["impl"] = "cuda"
+    elif case == "u_dtype":
+        u = u.to(torch.bfloat16)
+    elif case == "u_shape":
+        u = torch.zeros((3, 16))
+    with pytest.raises(ValueError):
+        ops.rwkv6_scan(r, k, v, w, u, **kw)
+
+
+@pytest.mark.parametrize("case", [
+    "device", "dtype", "mixed_dtype", "N", "impl", "A_dtype", "BC_shape",
+])
+def test_mamba_scan_rejects(case):
+    x, dt, A, B, C = _scan_args()
+    kw = {}
+    if case == "device":
+        C = C.to("meta")
+    elif case == "dtype":
+        x, dt, A, B, C = _scan_args(dtype=torch.float64)
+    elif case == "mixed_dtype":
+        dt = dt.to(torch.bfloat16)
+    elif case == "N":
+        x, dt, A, B, C = _scan_args(N=5)
+    elif case == "impl":
+        kw["impl"] = "xla"
+    elif case == "A_dtype":
+        A = A.to(torch.bfloat16)
+    elif case == "BC_shape":
+        B = torch.zeros((1, 7, 4))
+    with pytest.raises(ValueError):
+        ops.mamba_scan(x, dt, A, B, C, **kw)
+
+
+def test_cpu_route_launches_no_kernel():
+    ops.reset_launch_counts()
+    ops.flash_attention(*_flash_args())
+    ops.rwkv6_scan(*_rwkv_args())
+    ops.mamba_scan(*_scan_args())
+    for impl in ("auto", "plain"):
+        ops.mamba_scan(*_scan_args(), impl=impl)
+    assert ops.launch_counts() == {
+        "flash_attention": 0, "rwkv6_scan": 0, "mamba_scan": 0,
+    }
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "_DEFAULT_NVCC", tmp_path / "no-nvcc")
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(_build.source("mamba_scan"))
+    assert not (tmp_path / "build").exists()
+
+
+def test_every_kernel_source_is_built_for_sm90a_without_fast_math():
+    names = sorted(p.stem for p in _build.source("x").parent.glob("*.cu"))
+    assert names == ["flash_attention", "mamba_scan", "rwkv6_scan",
+                     "transport"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
+    for mod, src in ((tfa, "flash_attention"), (trw, "rwkv6_scan"),
+                     (tms, "mamba_scan")):
+        assert mod._SOURCE == _build.source(src) and mod._SOURCE.is_file()
+
+
+def test_ref_names_match_the_reference():
+    assert {"flash_attention_ref", "rwkv6_scan_ref", "mamba_scan_ref"} <= set(
+        ref.__all__)
+
