@@ -9,13 +9,18 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    CUDA versions.
 2. ``build``: compile the four sources under
    ``src/repro_torch/kernels/csrc/`` with ``nvcc`` for ``sm_90a``, one
-   compiler per source, all at once (seconds; registers and spill bytes per
-   thread for every kernel instance).
+   compiler per source, all at once (seconds); per kernel instance its
+   registers, spill bytes, static and dynamic shared memory and the count
+   of tensor-core instructions in its SASS (``cuobjdump``), and ptxas's
+   wgmma warnings.  Fails if a bf16 flash attention instance has no
+   ``HGMMA`` (wgmma) instruction.
 3. ``kernels``: both transport kernels against their plain versions on the
    card, bit for bit, over bits / leaf counts / bases / row strides /
    ragged widths and the slice's largest bucket; then their times at the
-   main path's bucket shapes (CUDA events, median of 25 after warm-up)
-   beside the bytes bound and the plain versions' times.
+   main path's bucket shapes (device time per call: CUDA events around 10
+   back-to-back calls, median of 5, after warm-up; and the latency of one
+   call on an idle card, host time included, median of 25) beside the
+   bytes bound and the plain versions' times.
 4. ``train``: minicpm-2b at its published widths (depth cut to 4 layers),
    bf16, world size 1, global batch 8 x 512 from ``SyntheticLM``: 5 steps
    of ``CommPolicy(nap, mean, compress_bits=4, error_feedback=True)``,
@@ -35,17 +40,25 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    (flash attention, the RWKV6 scan, the Mamba scan) against their plain
    versions on the card, over the CPU tests' matrix (masks, GQA, ragged S
    and d, head widths, state sizes, float32 and bf16) and up to S = 2048,
-   in the working type, at 2e-5 (float32) / 2e-2 (bf16).
+   in the working type, at 2e-5 (float32) / 2e-2 (bf16); bf16 attention
+   also over cases ragged against the tensor-core kernel's 128-row query
+   and 64-key tiles (S 1000 / 2047, windows 100 / 1000, GQA 4:1 and 8:1,
+   softcap, every head width), each output row held to a relative L2
+   error of 2^-7 beside the elementwise check.
 9. ``ops_full_width``: the second slice's main path, ``kernels.ops`` at the
    widths of the models the repository supports (constants below, each
    with its line in ``src/repro/configs/``): launch counters zeroed, each
    case launched once, counters read; then each case held against its
-   plain version (flash attention head by head) and timed (kernel: CUDA
-   events, median of 25 after 3 warm-up calls; plain version: median of 3;
-   ``scaled_dot_product_attention`` where it computes the same function),
-   beside its bound.  bf16 attention is held at rtol 2e-2 with an absolute
-   term of one bf16 step (2^-7) of each row's largest |plain| value; then
-   gemma2's two layers run once more in float32 and are held at 2e-5.
+   plain version (flash attention head by head) and timed (kernel and
+   ``scaled_dot_product_attention``, where it computes the same function:
+   device time per call over 10 back-to-back calls, median of 5, and the
+   latency of one call; plain version: one call, median of 3), beside its
+   bound.  bf16 attention is held at rtol 2e-2 with an absolute
+   term of one bf16 step (2^-7) of each row's largest |plain| value, and
+   each row to a relative L2 error of 2^-7 (a dropped 64-key tile at row
+   32k reads about 0.04); gemma2's cases are timed again with the softcap
+   off, as a measure of its share; then gemma2's two layers run once more
+   in float32 (the SIMT kernel), held at 2e-5 and timed.
 
 Then a line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits non-zero
@@ -55,6 +68,7 @@ without one, or without the repository's ``src/`` beside this file.
 from __future__ import annotations
 
 import gc
+import importlib
 import json
 import math
 import re
@@ -128,8 +142,31 @@ def card_rates(name: str) -> tuple[float, float, float]:
     raise RuntimeError(f"no peak rates on file for card {name!r}")
 
 
-def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median of ``reps`` timed calls (CUDA events) after ``warmup``."""
+def median_ms(fn, reps: int = 5, warmup: int = 3, launches: int = 10) -> float:
+    """Device time per call: the median over ``reps`` of CUDA events around
+    ``launches`` back-to-back calls, over ``launches``, after ``warmup``
+    calls.  The host prepares the next call while the card runs this one,
+    so a call's host time shows only where it exceeds its device time."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
+def call_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """One call between CUDA events on an idle card, median of ``reps``:
+    the call's latency, its host time (the wrapper, the launch) included,
+    the way the port's earlier kernel times were taken."""
+    torch.cuda.synchronize()
     for _ in range(warmup):
         fn()
     times = []
@@ -173,25 +210,51 @@ def _kernel_name(mangled: str) -> str:
     return name.split("(")[0].replace("void ", "") or mangled
 
 
+def _sass_counts(lib: Path) -> dict[str, dict[str, int]]:
+    """Tensor-core and TMA instructions per kernel in a library's SASS."""
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, _, code = body.partition("\n")
+        counts[name.strip()] = {op: len(re.findall(rf"\b{op}\b", code))
+                                for op in ("HGMMA", "HMMA", "UTMALDG")}
+    return counts
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     libs = _build.build(*(_build.source(n) for n in KERNEL_SOURCES))
     seconds = time.perf_counter() - t0
-    kernels = {}
+    fa_lib = importlib.import_module("repro_torch.kernels.flash_attention")._lib()
+    kernels, warnings = {}, {}
     for src, lib in libs.items():
         log = lib.with_suffix(".log").read_text()
-        kernels[src.name] = {
-            _kernel_name(fn): {"registers": int(regs),
-                               "spill_store_bytes": int(spill)}
-            for fn, spill, regs in re.findall(
-                r"Compiling entry function '([^']+)'.*?"
-                r"(\d+) bytes spill stores.*?Used (\d+) registers",
-                log, re.S,
-            )
-        }
+        sass = _sass_counts(lib)
+        kernels[src.name] = {}
+        for fn, spill, regs, used in re.findall(
+            r"Compiling entry function '([^']+)'.*?"
+            r"(\d+) bytes spill stores.*?Used (\d+) registers([^\n]*)",
+            log, re.S,
+        ):
+            name = _kernel_name(fn)
+            smem = re.search(r"(\d+) bytes smem", used)
+            row = {"registers": int(regs), "spill_store_bytes": int(spill),
+                   "static_smem_bytes": int(smem.group(1)) if smem else 0,
+                   **sass.get(fn, {})}
+            flash = re.search(r"flash_attention_(tc|simt)<(\d+)>", name)
+            if flash:
+                row["dynamic_smem_bytes"] = fa_lib.repro_flash_attention_smem(
+                    int(flash.group(2)), int(flash.group(1) == "tc"))
+                if flash.group(1) == "tc" and not row.get("HGMMA"):
+                    raise AssertionError(f"{name}: no wgmma (HGMMA) in SASS")
+            kernels[src.name][name] = row
+        warnings[src.name] = [line.strip() for line in log.splitlines()
+                              if "wgmma" in line.lower()]
     emit({"phase": "build", "seconds": seconds, "parallel": True,
           "libraries": [lib.name for lib in libs.values()],
-          "kernels": kernels})
+          "kernels": kernels, "ptxas_wgmma_warnings": warnings})
 
 
 def _case_offsets(gen, L, span):
@@ -300,6 +363,9 @@ def phase_kernels(bucket_sizes, rates) -> dict:
                 lambda: transport.quantize_pack(x, s, impl="plain", **kw))
             d_ms = median_ms(
                 lambda: transport.unpack_dequantize(w, s, cols=E, **kw))
+            q_call = call_ms(lambda: transport.quantize_pack(x, s, **kw))
+            d_call = call_ms(
+                lambda: transport.unpack_dequantize(w, s, cols=E, **kw))
             dp_ms = median_ms(lambda: transport.unpack_dequantize(
                 w, s, cols=E, impl="plain", **kw))
             nbytes = E * (4 + wi)
@@ -310,7 +376,9 @@ def phase_kernels(bucket_sizes, rates) -> dict:
             rows.append({"elems": E, "leaves": len(sizes),
                          "quantize_ms": q_ms,
                          "quantize_plain_ms": qp_ms, "dequantize_ms": d_ms,
-                         "dequantize_plain_ms": dp_ms, "bound_ms": bound,
+                         "dequantize_plain_ms": dp_ms,
+                         "quantize_call_ms": q_call,
+                         "dequantize_call_ms": d_call, "bound_ms": bound,
                          "bound_by": "bytes" if nbytes / bw >= ops / flops
                          else "operations"})
             del x, w
@@ -319,6 +387,8 @@ def phase_kernels(bucket_sizes, rates) -> dict:
             "quantize_pack": (tot("quantize_ms"), tot("quantize_plain_ms")),
             "unpack_dequantize": (tot("dequantize_ms"),
                                   tot("dequantize_plain_ms")),
+            "call_ms": {"quantize_pack": tot("quantize_call_ms"),
+                        "unpack_dequantize": tot("dequantize_call_ms")},
             "bound_ms": tot("bound_ms"),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in rows) else "operations",
@@ -561,6 +631,24 @@ def _mamba_inputs(gen, B, S, d, N, dtype):
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
+ROW_REL_L2 = 2.0 ** -7  # bf16 attention: per-row relative L2 error bound
+
+
+def _row_rel_l2(name, got, want, where) -> float:
+    """Largest per-row ||o - o_plain|| / ||o_plain|| (rows along the last
+    axis); raises beyond ``ROW_REL_L2``.  ``want`` is the plain version in
+    float32 on the same (bf16-valued) inputs, not rounded to bf16."""
+    a, b = got.float(), want.float()
+    worst = ((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max()
+    worst = worst.item()
+    if not worst <= ROW_REL_L2:
+        raise AssertionError(
+            f"{name} kernel != plain at {where}: a row's relative L2 error "
+            f"is {worst}, bound {ROW_REL_L2}"
+        )
+    return worst
+
+
 def _hold(name, got, want, dtype, where, *, row_atol=None) -> float:
     """Max |kernel - plain| in float32; raises beyond the tolerance.
 
@@ -588,6 +676,13 @@ def _hold(name, got, want, dtype, where, *, row_atol=None) -> float:
 
 FLASH_MASKS = ((True, None, None), (True, 32, None), (True, None, 30.0),
                (False, None, None), (True, 256, 50.0), (False, 64, None))
+# bf16 only: ragged against the tensor-core kernel's 128-row query and
+# 64-key tiles (S, window), GQA 4:1 and 8:1, softcap, every head width
+FLASH_BF16_SHAPES = ((1, 1000, 8, 2, 16), (1, 2047, 8, 1, 32),
+                     (2, 1000, 4, 1, 64), (1, 2047, 8, 2, 128),
+                     (1, 65, 8, 1, 128))
+FLASH_BF16_MASKS = ((True, 100, None), (False, 1000, None),
+                    (True, 1000, 50.0), (False, None, 30.0))
 
 
 def phase_ops_kernels() -> dict:
@@ -595,19 +690,30 @@ def phase_ops_kernels() -> dict:
     tests' matrix, up to S = 2048; returns the max error per kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     err = {"flash_attention": 0.0, "rwkv6_scan": 0.0, "mamba_scan": 0.0}
-    cases = 0
+    rel_l2, rel_l2_at, cases = 0.0, None, 0
+    shapes = ((1, 100, 4, 2, 32), (1, 128, 2, 2, 64), (1, 64, 2, 1, 128),
+              (2, 2048, 4, 2, 128), (1, 2048, 2, 2, 16), (1, 1000, 4, 1, 64))
     for dtype in (torch.float32, torch.bfloat16):
-        for B, S, H, KV, hd in ((1, 100, 4, 2, 32), (1, 128, 2, 2, 64),
-                                (1, 64, 2, 1, 128), (2, 2048, 4, 2, 128),
-                                (1, 2048, 2, 2, 16), (1, 1000, 4, 1, 64)):
+        flash = [(shape, FLASH_MASKS) for shape in shapes]
+        if dtype == torch.bfloat16:
+            flash += [(shape, FLASH_MASKS + FLASH_BF16_MASKS)
+                      for shape in FLASH_BF16_SHAPES]
+        for (B, S, H, KV, hd), masks in flash:
             q, k, v = _flash_inputs(gen, B, S, H, KV, hd, dtype)
-            for causal, window, softcap in FLASH_MASKS:
+            for causal, window, softcap in masks:
                 kw = dict(causal=causal, window=window, softcap=softcap)
                 where = f"{dtype} B,S,H,KV,hd={B},{S},{H},{KV},{hd} {kw}"
+                got = ops.flash_attention(q, k, v, **kw)
+                # the plain version computes in float32 and rounds to the
+                # inputs' type: run it on float32 copies, round here
+                want32 = ops.flash_attention(q.float(), k.float(), v.float(),
+                                             impl="plain", **kw)
                 err["flash_attention"] = max(err["flash_attention"], _hold(
-                    "flash_attention", ops.flash_attention(q, k, v, **kw),
-                    ops.flash_attention(q, k, v, impl="plain", **kw),
-                    dtype, where))
+                    "flash_attention", got, want32.to(dtype), dtype, where))
+                if dtype == torch.bfloat16:
+                    r = _row_rel_l2("flash_attention", got, want32, where)
+                    if r > rel_l2:
+                        rel_l2, rel_l2_at = r, where
                 cases += 1
         for B, S, H, hd in ((1, 100, 2, 32), (2, 64, 2, 16), (1, 40, 1, 64),
                             (2, 2048, 4, 64)):
@@ -627,8 +733,10 @@ def phase_ops_kernels() -> dict:
             cases += 1
     emit({"phase": "ops_kernels", "cases": cases,
           "tolerance": {"float32": TOL[torch.float32],
-                        "bfloat16": TOL[torch.bfloat16]},
-          "max_abs_err": err})
+                        "bfloat16": TOL[torch.bfloat16],
+                        "bfloat16_flash_row_rel_l2": ROW_REL_L2},
+          "max_abs_err": err, "flash_bf16_worst_row_rel_l2": rel_l2,
+          "flash_bf16_worst_row_case": rel_l2_at})
     torch.cuda.empty_cache()
     return err
 
@@ -705,9 +813,25 @@ def phase_ops_full_width(rates) -> dict:
         # bf16 attention rows over 32k keys are about 0.01 in size: hold them
         # to one bf16 step of the row's largest value, not to 2e-2
         row_atol = 2.0 ** -7 if dtype == bf else None
-        err = _hold(kern, out, plain(), dtype, name, row_atol=row_atol)
+        extra = {}
+        if kern == "flash_attention":
+            # the plain version on float32 copies (it computes in float32
+            # and rounds to the inputs' type); rounded here for _hold
+            want32 = _flash_plain_by_head(*(a.float() for a in args), **kw)
+            err = _hold(kern, out, want32.to(dtype), dtype, name,
+                        row_atol=row_atol)
+            if dtype == bf:
+                extra["row_rel_l2"] = _row_rel_l2(kern, out, want32, name)
+            del want32
+        else:
+            err = _hold(kern, out, plain(), dtype, name, row_atol=row_atol)
         ms = median_ms(lambda: call[kern](*args, **kw))
-        plain_ms = median_ms(plain, reps=3, warmup=0)
+        extra["call_ms"] = call_ms(lambda: call[kern](*args, **kw))
+        if kern == "flash_attention" and kw["softcap"] is not None:
+            # the same kernel with the softcap off: its tanhf's share
+            extra["ms_softcap_off"] = median_ms(
+                lambda: call[kern](*args, **{**kw, "softcap": None}))
+        plain_ms = median_ms(plain, reps=3, warmup=0, launches=1)
         library_ms, library_note = None, None
         if kern == "flash_attention":
             q, k, v = args
@@ -752,24 +876,37 @@ def phase_ops_full_width(rates) -> dict:
                "library_ms": library_ms, "library": library_note,
                "max_abs_err": err, "tolerance": TOL[dtype],
                "atol": (f"{row_atol} x row max |plain|" if row_atol
-                        else TOL[dtype])}
+                        else TOL[dtype]), **extra}
         emit({"phase": "ops_full_width", **row})
         results.append(row)
     del outs, cases
 
     # float32 control: gemma2's two layers again at full length in float32,
-    # held at 2e-5, so every key tile of the 32k band is checked tightly
+    # held at 2e-5, so every key tile of the 32k band is checked tightly;
+    # and timed: float32 inputs take the SIMT kernel, bound here by the
+    # float32 rate outside the tensor cores
     qkv32 = tuple(t.float() for t in qkv)
     del qkv
-    control = {}
+    control, f32_times = {}, {}
     for name, kw in gemma2_masks:
         got = ops.flash_attention(*qkv32, **kw)
         control[name] = _hold("flash_attention", got,
                               _flash_plain_by_head(*qkv32, **kw),
                               torch.float32, name + " (float32)")
         del got
+        q = qkv32[0]
+        B, S, H, hd = q.shape
+        bound_ms, bound_by = _bound(
+            2 * (q.numel() + qkv32[1].numel()) * 4,
+            4 * hd * _band_pairs(S, kw["causal"], kw["window"]) * B * H,
+            bw, f32_peak)
+        f32_times[name] = {
+            "ms": median_ms(lambda: ops.flash_attention(*qkv32, **kw),
+                            reps=3, warmup=1, launches=2),
+            "bound_ms": bound_ms, "bound_by": bound_by}
     emit({"phase": "ops_full_width_f32_control", "dtype": "float32",
-          "tolerance": TOL[torch.float32], "max_abs_err": control})
+          "tolerance": TOL[torch.float32], "max_abs_err": control,
+          "times": f32_times})
     del qkv32
     torch.cuda.empty_cache()
     return {"launches": launches, "cases": results, "f32_control": control}

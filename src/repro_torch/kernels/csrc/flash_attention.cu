@@ -11,60 +11,91 @@
 // What bounds it on an H100: operations.  At gemma2-27b's prefill_32k shape
 // one head does 4 * hd flops per (query, key) pair inside the band against
 // 2 * hd bytes read per key row, far above the card's ratio of operations to
-// bytes.  This first kernel does its products as float32 FMAs on the SIMT
-// cores (67 TFLOP/s on an H100 SXM, against 989 TFLOP/s for bf16 on the
-// tensor cores), so it runs well below the bf16 bound; wgmma / mma.sync
-// tiles are left to a later change.  What the design does about the work:
-//   * key tiles that lie wholly outside the causal band or the sliding
-//     window are skipped (gemma2's 4096-wide window at S = 32768 reads 1/8 of
-//     the causal band).  This leaves the result unchanged: in the Pallas
-//     kernel such a tile gives a row only the transient p = 1 of a row whose
-//     m is still NEG_INF, and the row's first valid tile wipes it exactly
+// bytes.  The input's type picks one of two kernels (a dispatch on the type,
+// not a fallback):
+//
+// bf16: flash_attention_tc, on the tensor cores (989 TFLOP/s).
+//   * S = Q K^T is wgmma m64n64k16 with both operands in shared memory: Q's
+//     tile and the key tile (keys x hd) are K-major.  O += P V is wgmma
+//     m64n{hd}k16 with P in registers: the f32 S fragment is rounded to bf16
+//     in place (the accumulator and the register-A layouts line up), and V's
+//     tile (keys x hd) is the MN-major B operand through the descriptor's
+//     transpose bit, so V is never transposed in memory.
+//   * Tiles arrive by TMA (cp.async.bulk.tensor, 4-D maps over the
+//     (B, S, H | KV, hd) layout, 128-byte swizzle, or 64 / 32 at hd 32 / 16,
+//     matching the wgmma descriptors), tracked by mbarriers.  One producer
+//     warp loads the block's Q tiles once and streams K and V through a ring
+//     of kStages stages; two consumer warpgroups (64 query rows each) run
+//     wgmma and the softmax and release a stage when both are done with it.
+//     TMA zero-fills rows past S; the kernel still masks keys >= S.
+//   * The epilogue works on the S fragment in registers: scale, softcap,
+//     masks (only on tiles that cross the diagonal, the window's edge or S),
+//     row max and sum by shuffles among the 4 threads that share a row, and
+//     the correction of the O accumulator.  log2(e) is folded into the scale
+//     (or into the softcap's factor) and p = exp2f(s - m); NEG_INF stays
+//     -1e30, so the masked arithmetic is the Pallas kernel's.
+//   * The one new rounding: P is rounded to bf16 before P V (the reference
+//     keeps p in f32).  Products of bf16 values are exact in f32, so Q K^T
+//     differs from the reference only in the order of its sums; l is summed
+//     from the f32 p, before rounding.  Each p carries a relative error of at
+//     most 2^-9, so o moves by about 2^-9 of its row's scale, as much again
+//     as the output's own rounding to bf16: held to 2^-7 of each row's norm.
+//   * 288 threads per block.  At hd 128 one block per SM, so a thread may
+//     hold O (64 floats), S (32) and P (16 words) in registers; at hd <= 64
+//     two blocks per SM (at most 112 registers a thread, where ptxas spills
+//     32 bytes at hd 64), so one block's softmax overlaps the other's wgmma.
+//
+// float32: flash_attention_simt, on the SIMT cores (67 TFLOP/s).  On the
+//   tensor cores float32 inputs would need TF32, which breaks the reference's
+//   float32 contract (2e-5), so they keep the first design: one 256-thread
+//   block per 64-row query tile, 64-key tiles staged in shared memory (rows
+//   padded by one float against bank conflicts), a 16 x 16 thread grid of
+//   4 x 4 register micro-tiles of float32 FMAs; each thread keeps 4 rows x
+//   hd/16 columns of the accumulator on the same rows as its scores, so m, l
+//   and the correction need only shuffles within a half-warp; expf.
+//
+// Both kernels:
+//   * skip key tiles that lie wholly outside the causal band or the sliding
+//     window (gemma2's 4096-wide window at S = 32768 reads 1/8 of the causal
+//     band).  This leaves the result unchanged: in the Pallas kernel such a
+//     tile gives a row only the transient p = 1 of a row whose m is still
+//     NEG_INF, and the row's first valid tile wipes it exactly
 //     (corr = exp(-1e30 - m) = 0 in f32); every row of a causal or windowed
 //     call has a valid key;
-//   * query tiles are issued last-first, so the long causal rows start early;
-//   * one block of 256 threads owns a 64-row query tile; a 16 x 16 thread grid
-//     computes a 64 x 64 score tile as 4 x 4 register micro-tiles from
-//     shared memory (rows padded by one float against bank conflicts), and
-//     each thread keeps 4 rows x hd/16 columns of the accumulator in
-//     registers, on the same rows as its scores, so m, l and the correction
-//     need only shuffles within a half-warp.
-//
-// The scale multiplies (1/sqrt(hd), as the Pallas kernel does at :120; the
-// plain version divides by sqrt(hd)).  The softcap c * tanh(s / c) comes
-// before the mask.  Masks: padded keys (k >= S), causal (q - k >= 0), window
-// (q - k < window).  GQA: query head h reads KV head h / (H / KV) (the
-// reference's jnp.repeat along the head axis), indexed here, not repeated.
-// Inputs are (B, S, H, hd) / (B, S, KV, hd), contiguous, float32 or bf16
-// (read with __bfloat162float); the output has q's type and layout.  All
-// element offsets are 64-bit.  Build without --use_fast_math (tanhf, expf).
+//   * issue query tiles last-first, so the long causal rows start early;
+//   * multiply by the scale (1/sqrt(hd), as the Pallas kernel does at :120;
+//     the plain version divides by sqrt(hd)); apply the softcap
+//     c * tanh(s / c) before the mask, with the accurate tanhf; mask padded
+//     keys (k >= S), causal (q - k >= 0) and window (q - k < window);
+//   * map query head h to KV head h / (H / KV) (the reference's jnp.repeat
+//     along the head axis), indexed, not repeated;
+//   * take (B, S, H, hd) / (B, S, KV, hd), contiguous, and write the output
+//     in q's type and layout, with 64-bit element offsets.
+// Build without --use_fast_math (tanhf, expf, exp2f stay accurate).  No
+// -lcuda: the tensor maps are encoded through cuTensorMapEncodeTiled, reached
+// with cudaGetDriverEntryPoint.
 //
 // The launcher is a plain C function: it launches on the caller's stream
 // and returns cudaGetLastError() (0 on success).
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr float kNegInf = -1.0e30f;  // the Pallas kernel's NEG_INF
+
+// ---------------------------------------------------------------------------
+// float32: SIMT kernel
+// ---------------------------------------------------------------------------
+
+namespace simt {
+
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;  // query rows per block
 constexpr int kBK = 64;  // key rows per staged tile
-constexpr float kNegInf = -1.0e30f;  // the Pallas kernel's NEG_INF
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -72,12 +103,12 @@ constexpr size_t smem_bytes() {
          (kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * (kBK + 1));
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int64_t S,
-                       int64_t H, int64_t KV, int causal, int64_t window,
-                       float scale, float softcap) {
+flash_attention_simt(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int64_t S, int64_t H, int64_t KV, int causal,
+                     int64_t window, float scale, float softcap) {
   constexpr int QS = HD + 1;   // padded row of the Q and K tiles
   constexpr int PS = kBK + 1;  // padded row of the probability tile
   constexpr int CPT = HD / 16; // accumulator columns per thread
@@ -97,16 +128,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t kvh = h / (H / KV);
   const int64_t q_row = H * HD;
   const int64_t kv_row = KV * HD;
-  const T* qb = q + b * S * q_row + h * HD;
-  const T* kb = k + b * S * kv_row + kvh * HD;
-  const T* vb = v + b * S * kv_row + kvh * HD;
-  T* ob = o + b * S * q_row + h * HD;
+  const float* qb = q + b * S * q_row + h * HD;
+  const float* kb = k + b * S * kv_row + kvh * HD;
+  const float* vb = v + b * S * kv_row + kvh * HD;
+  float* ob = o + b * S * q_row + h * HD;
   const int64_t q0 = qt * kBQ;
 
   for (int e = tid; e < kBQ * HD; e += kThreads) {
     const int r = e / HD, d = e % HD;
     const int64_t s = q0 + r;
-    Qs[r * QS + d] = s < S ? to_float(qb[s * q_row + d]) : 0.f;
+    Qs[r * QS + d] = s < S ? qb[s * q_row + d] : 0.f;
   }
 
   // keys [k_lo, k_hi) hold every key valid for some row of this tile
@@ -133,8 +164,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / HD, d = e % HD;
       const int64_t s = k0 + r;
       const bool in = s < S;
-      Ks[r * QS + d] = in ? to_float(kb[s * kv_row + d]) : 0.f;
-      Vs[r * HD + d] = in ? to_float(vb[s * kv_row + d]) : 0.f;
+      Ks[r * QS + d] = in ? kb[s * kv_row + d] : 0.f;
+      Vs[r * HD + d] = in ? vb[s * kv_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -214,49 +245,624 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
-      ob[row * q_row + tx + 16 * c] = from_float<T>(acc[i][c] / denom);
+      ob[row * q_row + tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
            int64_t S, int64_t H, int64_t KV, int64_t causal, int64_t window,
            float scale, float softcap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  int err = cudaFuncSetAttribute(flash_attention_kernel<T, HD>,
+  int err = cudaFuncSetAttribute(flash_attention_simt<HD>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int64_t n_q = (S + kBQ - 1) / kBQ;
   if (n_q > 2147483647LL || B * H > 65535) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(n_q), static_cast<unsigned>(B * H));
-  flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV,
+  flash_attention_simt<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV,
       static_cast<int>(causal), window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, void* o,
-                int64_t B, int64_t S, int64_t H, int64_t KV, int64_t hd,
-                int64_t causal, int64_t window, float scale, float softcap,
-                cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap, stream);
-    default: return cudaErrorInvalidValue;
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernel (wgmma + TMA)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kConsumers = 2;   // consumer warpgroups per block
+constexpr int kRows = 64;       // query rows per consumer warpgroup
+constexpr int kBQ = kRows * kConsumers;
+constexpr int kBK = 64;         // keys per tile
+constexpr int kStages = 2;      // K/V ring depth
+constexpr int kThreads = 128 * kConsumers + 32;  // + the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory geometry for head width HD.  A tile row is split into
+// chunks of W bytes, one swizzle span each (W = 128, or the whole row at
+// hd 16 / 32); a tile of R rows is kChunks slabs of R x W bytes.
+template <int HD>
+struct Geo {
+  static constexpr int W = HD * 2 < 128 ? HD * 2 : 128;
+  static constexpr int kChunks = HD * 2 / W;
+  static constexpr int kChunkCols = W / 2;
+  static constexpr int kQBytes = kRows * HD * 2;   // one warpgroup's Q tile
+  static constexpr int kKVBytes = kBK * HD * 2;    // one K or V tile
+  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64, 3 = 32
+  static constexpr uint64_t kLayout = W == 128 ? 1 : (W == 64 ? 2 : 3);
+  // + 1024 to align the base to the 128-byte swizzle's 1024-byte atom
+  static constexpr size_t kSmem =
+      1024 + kConsumers * kQBytes + kStages * 2 * kKVBytes;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
+}
+
+// One box {W/2 columns, 1 head, 64 rows, 1 batch} of a 4-D tensor map.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout; base offset 0 (every tile
+// starts on a swizzle atom).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous region's fences.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// S (64 x 64) (+)= A (64 x 16, shared) . B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// O (64 x 16) += A (64 x 16, registers) . B (16 x 16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O (64 x 32) += A (64 x 16, registers) . B (16 x 32, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O (64 x 64) += A (64 x 16, registers) . B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O (64 x 128) += A (64 x 16, registers) . B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (HD == 16) wgmma_rs_n16(d, a, b);
+  if constexpr (HD == 32) wgmma_rs_n32(d, a, b);
+  if constexpr (HD == 64) wgmma_rs_n64(d, a, b);
+  if constexpr (HD == 128) wgmma_rs_n128(d, a, b);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// The S fragment in place: scores in log2 units (scaled, soft-capped), keys
+// outside the mask at NEG_INF (EDGE tiles only), and each of the thread's two
+// rows' maxima.  Fragment register i holds row a (bit 1 clear) or row b,
+// key (i / 4) * 8 + cq + (i & 1) of the tile.
+template <bool CAP, bool EDGE>
+__device__ __forceinline__ void scores(float (&s)[kBK / 2], float mul,
+                                       float cap_l2, int lim, int da, int cq,
+                                       int causal, int window, float& mx_a,
+                                       float& mx_b) {
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    float x = CAP ? cap_l2 * tanhf(s[i] * mul) : s[i] * mul;
+    if (EDGE) {
+      const int j = (i / 4) * 8 + cq + (i & 1);    // key - k0
+      const int rel = da + ((i & 2) ? 8 : 0) - j;  // row - key
+      bool ok = j < lim;
+      if (causal) ok = ok && rel >= 0;
+      if (window > 0) ok = ok && rel < window;
+      x = ok ? x : kNegInf;
+    }
+    s[i] = x;
+    if (i & 2)
+      mx_b = fmaxf(mx_b, x);
+    else
+      mx_a = fmaxf(mx_a, x);
+  }
+}
+
+// Grid (query tiles of kBQ rows, B * H).  Warps 0-7: two consumer
+// warpgroups, rows [q0, q0 + 64) and [q0 + 64, q0 + 128); warp 8: producer.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 2 : 1)
+flash_attention_tc(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   __nv_bfloat16* __restrict__ o, int64_t S, int64_t H,
+                   int64_t KV, int causal, int window, float scale,
+                   float softcap) {
+  using G = Geo<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  // full[kStages], empty[kStages], q
+  __shared__ __align__(8) uint64_t bars[2 * kStages + 1];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_smem = base;
+  const uint32_t kv_smem = base + kConsumers * G::kQBytes;
+  const uint32_t full0 = smem_u32(&bars[0]);
+  const uint32_t empty0 = smem_u32(&bars[kStages]);
+  const uint32_t q_bar = smem_u32(&bars[2 * kStages]);
+
+  const int64_t qt = static_cast<int64_t>(gridDim.x) - 1 - blockIdx.x;
+  const int64_t bh = blockIdx.y;
+  const int64_t b = bh / H;
+  const int64_t h = bh % H;
+  const int64_t kvh = h / (H / KV);
+  const int64_t q0 = qt * kBQ;
+
+  // keys [k_lo, k_hi) hold every key valid for some row of this block
+  const int64_t q_last = (q0 + kBQ < S ? q0 + kBQ : S) - 1;
+  int64_t k_lo = 0, k_hi = S;
+  if (causal) k_hi = q_last + 1;
+  if (window > 0 && q0 - window + 1 > 0) k_lo = q0 - window + 1;
+  const int64_t kt_first = k_lo / kBK;
+  const int64_t kt_end = (k_hi + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 128 * kConsumers);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (warp == 4 * kConsumers) {
+    // producer: Q once, then K and V tile by tile through the ring
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, kConsumers * G::kQBytes);
+      for (int w = 0; w < kConsumers; ++w)
+        for (int c = 0; c < G::kChunks; ++c)
+          tma_load(q_smem + w * G::kQBytes + c * kRows * G::W, &q_map, q_bar,
+                   c * G::kChunkCols, static_cast<int>(h),
+                   static_cast<int>(q0 + w * kRows), static_cast<int>(b));
+      for (int64_t kt = kt_first; kt < kt_end; ++kt) {
+        const int64_t t = kt - kt_first;
+        const int s = static_cast<int>(t % kStages);
+        const uint32_t use = static_cast<uint32_t>(t / kStages);
+        mbar_wait(empty0 + 8 * s, (use & 1u) ^ 1u);
+        const uint32_t full = full0 + 8 * s;
+        mbar_expect_tx(full, 2 * G::kKVBytes);
+        const uint32_t kd = kv_smem + 2 * s * G::kKVBytes;
+        const uint32_t vd = kd + G::kKVBytes;
+        for (int c = 0; c < G::kChunks; ++c) {
+          tma_load(kd + c * kBK * G::W, &k_map, full, c * G::kChunkCols,
+                   static_cast<int>(kvh), static_cast<int>(kt * kBK),
+                   static_cast<int>(b));
+          tma_load(vd + c * kBK * G::W, &v_map, full, c * G::kChunkCols,
+                   static_cast<int>(kvh), static_cast<int>(kt * kBK),
+                   static_cast<int>(b));
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: accumulator rows row_a (fragment registers with
+  // bit 1 clear) and row_b = row_a + 8; columns 8 * n + cq + {0, 1}
+  const int wg = warp / 4;
+  const int64_t r0 = q0 + wg * kRows;
+  const int64_t row_a = r0 + (warp % 4) * 16 + lane / 4;
+  const int64_t row_b = row_a + 8;
+  const int cq = 2 * (lane % 4);
+  const uint32_t q_tile = q_smem + wg * G::kQBytes;
+  const bool capped = softcap > 0.f;
+  // scores in log2 units: cap_l2 * tanh(s * scale / c), or s * scale * log2e
+  const float mul = capped ? scale / softcap : scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e;
+
+  float o_acc[HD / 2];
+  float s_acc[kBK / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) s_acc[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  mbar_wait(q_bar, 0);
+  for (int64_t kt = kt_first; kt < kt_end; ++kt) {
+    const int64_t t = kt - kt_first;
+    const int s = static_cast<int>(t % kStages);
+    mbar_wait(full0 + 8 * s, static_cast<uint32_t>(t / kStages) & 1u);
+    const int64_t k0 = kt * kBK;
+    // whole tile outside this warpgroup's band (or rows past S): skip
+    const bool skip = r0 >= S || (causal && k0 > r0 + kRows - 1) ||
+                      (window > 0 && r0 - (k0 + kBK - 1) >= window);
+    if (!skip) {
+      const uint32_t kd = kv_smem + 2 * s * G::kKVBytes;
+      const uint32_t vd = kd + G::kKVBytes;
+
+      // S = Q K^T
+      fence_regs(s_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const int c = ks * 16 / G::kChunkCols;
+        const uint32_t off = (ks * 16 % G::kChunkCols) * 2;
+        const uint64_t desc_q = make_desc(q_tile + c * kRows * G::W + off,
+                                          16, 8 * G::W, G::kLayout);
+        const uint64_t desc_k = make_desc(kd + c * kBK * G::W + off, 16,
+                                          8 * G::W, G::kLayout);
+        wgmma_ss_n64(s_acc, desc_q, desc_k, ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s_acc);
+
+      // scale, softcap, mask (on edge tiles only), row max
+      const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > r0) ||
+                        (window > 0 && r0 + kRows - 1 - k0 >= window);
+      const int lim = static_cast<int>(S - k0 < kBK ? S - k0 : kBK);
+      const int da = static_cast<int>(row_a - k0);  // row - tile's first key
+      float mx_a = kNegInf, mx_b = kNegInf;
+      if (capped) {
+        if (edge)
+          scores<true, true>(s_acc, mul, cap_l2, lim, da, cq, causal, window,
+                             mx_a, mx_b);
+        else
+          scores<true, false>(s_acc, mul, cap_l2, lim, da, cq, causal,
+                              window, mx_a, mx_b);
+      } else {
+        if (edge)
+          scores<false, true>(s_acc, mul, cap_l2, lim, da, cq, causal,
+                              window, mx_a, mx_b);
+        else
+          scores<false, false>(s_acc, mul, cap_l2, lim, da, cq, causal,
+                               window, mx_a, mx_b);
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float corr_a = exp2f(m_a - mn_a), corr_b = exp2f(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+
+      // p in f32 for l, rounded to bf16 pairs as P V's A fragment
+      uint32_t p[kBK / 4];
+      float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBK / 4; ++j) {
+        const float mn = (j & 1) ? mn_b : mn_a;
+        const float p0 = exp2f(s_acc[2 * j] - mn);
+        const float p1 = exp2f(s_acc[2 * j + 1] - mn);
+        if (j & 1)
+          ps_b += p0 + p1;
+        else
+          ps_a += p0 + p1;
+        p[j] = pack_bf16(p0, p1);
+      }
+      l_a = l_a * corr_a + ps_a;
+      l_b = l_b * corr_b + ps_b;
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o_acc[i] *= (i & 2) ? corr_b : corr_a;
+
+      // O += P V
+      fence_regs(o_acc);
+      fence_regs(p);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                               p[4 * kk + 3]};
+        wgmma_pv<HD>(o_acc, a,
+                     make_desc(vd + kk * 16 * G::W, kBK * G::W, 8 * G::W,
+                               G::kLayout));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o_acc);
+    }
+    mbar_arrive(empty0 + 8 * s);
+  }
+
+  // l: the four threads of a row hold partial sums
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  const int64_t q_row = H * HD;
+  __nv_bfloat16* ob = o + b * S * q_row + h * HD;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int col = 8 * n + cq;
+    if (row_a < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row_a * q_row + col) =
+          __floats2bfloat162_rn(o_acc[4 * n] / den_a,
+                                o_acc[4 * n + 1] / den_a);
+    if (row_b < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row_b * q_row + col) =
+          __floats2bfloat162_rn(o_acc[4 * n + 2] / den_b,
+                                o_acc[4 * n + 3] / den_b);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// 4-D map over a contiguous bf16 (B, S, heads, hd) tensor, innermost first;
+// box = {W/2 columns, 1 head, 64 rows, 1 batch}, zero fill out of bounds.
+template <int HD>
+int make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S,
+             int64_t heads) {
+  using G = Geo<HD>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {
+      HD * 2, static_cast<cuuint64_t>(heads * HD * 2),
+      static_cast<cuuint64_t>(S * heads * HD * 2)};
+  const cuuint32_t box[4] = {G::kChunkCols, 1, kRows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      G::W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                  : (G::W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : CU_TENSOR_MAP_SWIZZLE_32B);
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
+           int64_t S, int64_t H, int64_t KV, int64_t causal, int64_t window,
+           float scale, float softcap, cudaStream_t stream) {
+  // TMA coordinates are 32-bit
+  if (S > 2147483647LL - kBQ || B * H > 65535) return cudaErrorInvalidValue;
+  CUtensorMap q_map, k_map, v_map;
+  int err = make_map<HD>(&q_map, q, B, S, H);
+  if (err == cudaSuccess) err = make_map<HD>(&k_map, k, B, S, KV);
+  if (err == cudaSuccess) err = make_map<HD>(&v_map, v, B, S, KV);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = Geo<HD>::kSmem;
+  err = cudaFuncSetAttribute(flash_attention_tc<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>((S + kBQ - 1) / kBQ),
+                  static_cast<unsigned>(B * H));
+  // a window wider than S masks nothing
+  const int win = window > 0 ? static_cast<int>(window < S ? window : S) : 0;
+  flash_attention_tc<HD><<<grid, kThreads, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), S, H, KV,
+      static_cast<int>(causal), win, scale, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* o,
+              int64_t B, int64_t S, int64_t H, int64_t KV, int64_t dtype,
+              int64_t causal, int64_t window, float scale, float softcap,
+              cudaStream_t stream) {
+  if (dtype == 0)
+    return simt::launch<HD>(q, k, v, o, B, S, H, KV, causal, window, scale,
+                            softcap, stream);
+  if (dtype == 1)
+    return tc::launch<HD>(q, k, v, o, B, S, H, KV, causal, window, scale,
+                          softcap, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, o: (B, S, H, hd); k, v: (B, S, KV, hd); dtype 0 = float32, 1 = bf16.
-// window <= 0 means no window, softcap <= 0 no softcap.
+// q, o: (B, S, H, hd); k, v: (B, S, KV, hd); dtype 0 = float32 (SIMT
+// kernel), 1 = bf16 (tensor-core kernel).  window <= 0 means no window,
+// softcap <= 0 no softcap.
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, int64_t B, int64_t S, int64_t H,
                           int64_t KV, int64_t hd, int64_t dtype,
@@ -267,13 +873,25 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   int err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, o, B, S, H, KV, hd, causal, window,
-                              scale, softcap, st);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, causal,
-                                      window, scale, softcap, st);
-  return cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return launch_hd<16>(q, k, v, o, B, S, H, KV, dtype, causal, window, scale, softcap, st);
+    case 32: return launch_hd<32>(q, k, v, o, B, S, H, KV, dtype, causal, window, scale, softcap, st);
+    case 64: return launch_hd<64>(q, k, v, o, B, S, H, KV, dtype, causal, window, scale, softcap, st);
+    case 128: return launch_hd<128>(q, k, v, o, B, S, H, KV, dtype, causal, window, scale, softcap, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of the kernel instance for (hd, dtype), in bytes;
+// -1 for a head width with no kernel.
+int64_t repro_flash_attention_smem(int64_t hd, int64_t dtype) {
+  switch (hd) {
+    case 16: return dtype == 1 ? tc::Geo<16>::kSmem : simt::smem_bytes<16>();
+    case 32: return dtype == 1 ? tc::Geo<32>::kSmem : simt::smem_bytes<32>();
+    case 64: return dtype == 1 ? tc::Geo<64>::kSmem : simt::smem_bytes<64>();
+    case 128: return dtype == 1 ? tc::Geo<128>::kSmem : simt::smem_bytes<128>();
+    default: return -1;
+  }
 }
 
 }  // extern "C"

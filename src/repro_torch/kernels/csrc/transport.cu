@@ -13,12 +13,23 @@
 // writes 4 B.  Each performs a handful of operations per element, far below
 // the card's ratio of operations to bytes.
 //
-// Design: one thread per output byte (quantize) or output element
-// (dequantize).  Neighbouring threads touch neighbouring addresses, so the
-// f32 loads and the one-byte stores coalesce within a warp.  Widening the
-// stores to 16-byte vectors (16 elements per thread) is left to a later
-// change.  The grid is (column blocks, rows): the row comes from blockIdx.y,
-// so no thread divides by the row width.  All flat indices are 64-bit.
+// Design.  Quantize: one thread per output byte; neighbouring threads touch
+// neighbouring addresses, so the f32 loads and the one-byte stores coalesce
+// within a warp (16-byte vectors are left to a later change).  Dequantize:
+// each thread decodes 16 wire bytes, loaded as one uint4 (wire rows are
+// 128- or 256-byte blocks, so every row is 16-byte aligned).  A warp's 512
+// bytes go through 512 bytes of shared memory, and lane t takes back the
+// 4-byte word t of each 128-byte segment: 4 int8 elements, or 4 low and 4
+// high int4 nibbles (elements k..k+3 and k+128..k+131 of a block).  So each
+// of the thread's 4 (int8) or 8 (int4) float4 stores is part of one warp
+// store of 512 contiguous bytes; a thread's 16 contiguous bytes decoded in
+// place would put its float4 stores 64 bytes apart across the warp, each
+// warp store writing half sectors over 2 KB.  Each thread finds its leaf once
+// (binary search over the offsets) and selects per element only where a
+// leaf boundary falls inside its run; block and segment indices come from
+// shifts.  The grid is (column blocks, rows): the row comes from
+// blockIdx.y, so no thread divides by the row width.  All flat indices are
+// 64-bit.
 //
 // Numerics match the jnp oracle: IEEE division (__fdiv_rn, never a
 // reciprocal multiply), round half to even (rintf, not roundf), clip to
@@ -92,7 +103,68 @@ __global__ void quantize_pack_kernel(const float* __restrict__ x,
   out[i * Cw + k] = byte;
 }
 
-// wire: (R, Cw) bytes.  out: (R, Cp) f32, Cp = Cw (int8) or 2 * Cw (int4).
+// The last leaf l with offsets[l] <= idx (the rule of leaf_scale, empty
+// leaves included), by binary search.
+__device__ __forceinline__ int64_t leaf_of(int64_t idx,
+                                           const int64_t* __restrict__ offsets,
+                                           int64_t L) {
+  int64_t lo = 0, hi = L - 1;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi + 1) >> 1;
+    if (offsets[mid] <= idx)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// Leaf scales along one thread's increasing global indices in [first,
+// last]: one scale for the whole run when no leaf starts inside it, else
+// the leaf advanced element by element.
+struct LeafCursor {
+  const int64_t* offsets;
+  const float* scales;
+  int64_t L, l;
+  float s;
+  bool uniform;
+  __device__ __forceinline__ LeafCursor(const int64_t* o, const float* sc,
+                                        int64_t L_, int64_t first,
+                                        int64_t last)
+      : offsets(o), scales(sc), L(L_), l(leaf_of(first, o, L_)) {
+    s = sc[l];
+    uniform = l + 1 >= L || o[l + 1] > last;
+  }
+  // idx must not decrease from one call to the next
+  __device__ __forceinline__ float at(int64_t idx) {
+    if (uniform) return s;
+    while (l + 1 < L && offsets[l + 1] <= idx) ++l;
+    return scales[l];
+  }
+};
+
+// Values v[k] * scale(idx + k), k < 4, as one float4 store at dst.
+__device__ __forceinline__ void store4(float* dst, const int (&v)[4],
+                                       LeafCursor& cur, int64_t idx) {
+  float s[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) s[k] = cur.at(idx + k);  // in index order
+  *reinterpret_cast<float4*>(dst) = make_float4(
+      __fmul_rn(static_cast<float>(v[0]), s[0]),
+      __fmul_rn(static_cast<float>(v[1]), s[1]),
+      __fmul_rn(static_cast<float>(v[2]), s[2]),
+      __fmul_rn(static_cast<float>(v[3]), s[3]));
+}
+
+// Wire bytes per warp: 32 lanes x one uint4.
+constexpr int64_t kWarpBytes = 32 * 16;
+
+// wire: (R, Cw) bytes, Cw a multiple of the wire block.  out: (R, Cp) f32,
+// Cp = Cw (int8) or 2 * Cw (int4).  Warp w of row i decodes wire bytes
+// [512 w, 512 w + 512): lane t loads bytes [16 t, 16 t + 16) of them as one
+// uint4 into shared memory, then takes 4-byte word t of each of the four
+// 128-byte segments, so that each float4 store of the warp covers 512
+// contiguous bytes.
 __global__ void unpack_dequantize_kernel(const uint8_t* __restrict__ wire,
                                          float* __restrict__ out,
                                          const int64_t* __restrict__ offsets,
@@ -100,21 +172,49 @@ __global__ void unpack_dequantize_kernel(const uint8_t* __restrict__ wire,
                                          int64_t L, int64_t Cw, int64_t Cp,
                                          int64_t base, int64_t row_stride,
                                          int bits) {
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (c >= Cp) return;
+  __shared__ uint4 stage[kThreads / 32][32];
+  const int lane = threadIdx.x & 31;
+  const int64_t w0 =
+      ((static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5) *
+      kWarpBytes;
+  if (w0 >= Cw) return;  // whole warps leave together
   const int64_t i = blockIdx.y;
-  const uint8_t* wr = wire + i * Cw;
-  int v;
-  if (bits == 4) {
-    const int64_t kk = c % kBlock;
-    const uint8_t b = wr[(c / kBlock) * kHalf + (kk % kHalf)];
-    const int nib = kk < kHalf ? (b & 0xF) : ((b >> 4) & 0xF);
-    v = nib > 7 ? nib - 16 : nib;
-  } else {
-    v = static_cast<int>(static_cast<int8_t>(wr[c]));
+  uint4* st = stage[threadIdx.x >> 5];
+  if (w0 + 16 * lane < Cw)
+    st[lane] = *reinterpret_cast<const uint4*>(wire + i * Cw + w0 + 16 * lane);
+  __syncwarp();
+  const uint32_t* sw = reinterpret_cast<const uint32_t*>(st);
+  float* orow = out + i * Cp;
+  const int64_t g = base + i * row_stride;  // global index of column 0
+  const bool int4 = bits == 4;
+  // column of segment 0's first element for this lane, and the column step
+  // per 128-byte segment (a whole int4 block, or 128 int8 elements)
+  const int64_t c0 = (int4 ? (w0 << 1) : w0) + 4 * lane;
+  const int64_t step = int4 ? kBlock : 128;
+  LeafCursor cur(offsets, scales, L, g + c0,
+                 g + c0 + 3 * step + (int4 ? kHalf + 3 : 3));
+  int v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (w0 + 128 * j >= Cw) break;
+    const uint32_t word = sw[32 * j + lane];
+    const int64_t c = c0 + j * step;
+    if (int4) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)  // low nibbles, sign-extended
+        v[k] = static_cast<int32_t>(word << (28 - 8 * k)) >> 28;
+      store4(orow + c, v, cur, g + c);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)  // high nibbles: elements 128 further on
+        v[k] = static_cast<int32_t>(word << (24 - 8 * k)) >> 28;
+      store4(orow + c + kHalf, v, cur, g + c + kHalf);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = static_cast<int32_t>(word << (24 - 8 * k)) >> 24;
+      store4(orow + c, v, cur, g + c);
+    }
   }
-  const float s = leaf_scale(base + i * row_stride + c, offsets, scales, L);
-  out[i * Cp + c] = __fmul_rn(static_cast<float>(v), s);
 }
 
 int launch_dims(int64_t cols, int64_t rows, dim3* grid) {
@@ -159,9 +259,11 @@ int repro_unpack_dequantize(const void* wire, void* out, const void* offsets,
   if (Cw % wblock != 0 || bits < 2 || bits > 8) return cudaErrorInvalidValue;
   int err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
+  if (reinterpret_cast<uintptr_t>(wire) % 16 != 0)
+    return cudaErrorMisalignedAddress;
   const int64_t Cp = (Cw / wblock) * kBlock;
   dim3 grid;
-  err = launch_dims(Cp, R, &grid);
+  err = launch_dims((Cw + kWarpBytes - 1) / kWarpBytes * 32, R, &grid);
   if (err != cudaSuccess) return err;
   unpack_dequantize_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(wire), static_cast<float*>(out),

@@ -7,7 +7,10 @@ masking, a sliding window (``0 <= q - k < window`` with causal,
 before the mask, and scale ``1/sqrt(hd)``.  The kernel
 (``csrc/flash_attention.cu``) reads the (B, S, H, hd) layout directly and
 maps query head h to KV head ``h // (H // KV)``, so neither the head
-flattening nor the GQA repeat is materialised.
+flattening nor the GQA repeat is materialised.  bf16 inputs run on the
+tensor cores (wgmma fed by TMA; P is rounded to bf16 before P·V), float32
+inputs on the SIMT cores in float32, as the reference's float32 contract
+needs (TF32 would break it).
 
 Routing (:func:`._build.use_kernel`): a CUDA tensor launches the kernel, a
 CPU tensor takes the plain version :func:`.ref.flash_attention_ref`;
@@ -52,6 +55,9 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_float] * 2
                        + [ctypes.c_int64, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        smem = lib.repro_flash_attention_smem
+        smem.argtypes = [ctypes.c_int64, ctypes.c_int64]
+        smem.restype = ctypes.c_int64
         _LIB = lib
     return _LIB
 
@@ -115,6 +121,8 @@ def flash_attention_bshd(
     if not _build.use_kernel(impl, q, k, v):
         return _plain(q, k, v, causal, window, softcap)
     B, S, H, hd = q.shape
+    # the tensor maps of the bf16 kernel want 16-byte aligned bases
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     index, stream = _build.stream_args(q)
     rc = _lib().repro_flash_attention(

@@ -240,6 +240,8 @@ def unpack_dequantize(
             row_stride=row_stride, block=block,
         )
         return out[:, :cols]
+    if wire.data_ptr() % 16:
+        wire = wire.clone()  # the kernel loads 16 wire bytes at a time
     out = torch.empty(
         (R, (Cw // wblock) * block), dtype=torch.float32, device=wire.device
     )

@@ -13,6 +13,7 @@ held against the same plain versions on the card by ``chip_smoke.py``
 from __future__ import annotations
 
 import importlib
+import math
 
 import ml_dtypes
 import numpy as np
@@ -25,6 +26,8 @@ from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.rwkv6_scan import rwkv6_scan_pallas
 from repro_torch.kernels import _build, ops, ref
+
+from _torch_fakes import fake_kernel_route
 
 # the package exports the wrappers under their submodules' names
 tfa = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -312,3 +315,63 @@ def test_ref_names_match_the_reference():
     assert {"flash_attention_ref", "rwkv6_scan_ref", "mamba_scan_ref"} <= set(
         ref.__all__)
 
+
+# ---------------------------------------------------------------------------
+# the ctypes call, with the library stubbed out
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """Route CPU tensors to the kernel path with a recording library."""
+    rec = fake_kernel_route(monkeypatch, _build, tfa)
+    ops.reset_launch_counts()
+    yield rec
+    ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None), (False, 5, 30.0),
+])
+@pytest.mark.parametrize("hd", [16, 128])
+def test_flash_attention_marshals_the_c_call(fake_launch, dtype, code, causal,
+                                             window, softcap, hd):
+    B, S, H, KV = 2, 9, 4, 2
+    q = torch.zeros((B, S, H, hd), dtype=dtype)
+    k, v = (torch.zeros((B, S, KV, hd), dtype=dtype) for _ in range(2))
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap)
+    ((name, args),) = fake_launch.calls
+    assert name == "repro_flash_attention"
+    assert args == (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, S, H, KV, hd, code, int(causal), 0 if window is None else window,
+        1.0 / math.sqrt(hd), 0.0 if softcap is None else softcap, 0, 0,
+    )
+    assert out.shape == q.shape and out.dtype == dtype
+    assert out.data_ptr() not in (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+def test_flash_attention_flat_layout_marshals_one_head(fake_launch):
+    q, k, v = (torch.zeros((6, 9, 32), dtype=torch.bfloat16)
+               for _ in range(3))
+    out = tfa.flash_attention(q, k, v, window=4)
+    ((_, args),) = fake_launch.calls
+    # (BH, S, hd) goes in as (BH, S, 1, hd): one head, no KV grouping
+    assert args[4:12] == (6, 9, 1, 1, 32, 1, 1, 4)
+    assert out.shape == (6, 9, 32) and out.dtype == torch.bfloat16
+
+
+def test_flash_attention_hands_the_kernel_aligned_bases(fake_launch):
+    # contiguous views one element into their buffers: the bf16 kernel's
+    # tensor maps need 16-byte aligned bases, so the wrapper passes copies
+    q, k, v = (torch.zeros(1 + 9 * 2 * 16, dtype=torch.bfloat16)[1:]
+               .view(1, 9, 2, 16) for _ in range(3))
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    ops.flash_attention(q, k, v)
+    ((_, args),) = fake_launch.calls
+    assert all(p % 16 == 0 for p in args[:4])
+    assert not {q.data_ptr(), k.data_ptr(), v.data_ptr()} & set(args[:3])

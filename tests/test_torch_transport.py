@@ -20,6 +20,8 @@ from hypothesis import given, settings, strategies as st
 from repro.kernels import transport as jt
 from repro_torch.kernels import transport as tt
 
+from _torch_fakes import fake_kernel_route
+
 
 def _case(seed, bits, L, base, R, row_stride, cols):
     rng = np.random.default_rng(seed)
@@ -149,3 +151,45 @@ def test_kernels_match_plain_on_card():
                 tt.unpack_dequantize(w, sc, cols=700, **kw),
                 tt.unpack_dequantize(w, sc, cols=700, impl="plain", **kw),
             )
+
+
+@pytest.mark.parametrize("bits,wire_cols,cols", [
+    (4, 256, 500), (8, 512, 500), (3, 256, 256),
+])
+@pytest.mark.parametrize("base,row_stride", [(0, 0), (37, 512)])
+def test_unpack_dequantize_marshals_the_c_call(monkeypatch, bits, wire_cols,
+                                               cols, base, row_stride):
+    rec = fake_kernel_route(monkeypatch, tt._build, tt)
+    tt.reset_launch_counts()
+    R, offsets = 3, (0, 7, 7, 300)
+    wire = torch.zeros((R, wire_cols), dtype=tt.wire_dtype(bits))
+    scales = torch.ones(len(offsets))
+    out = tt.unpack_dequantize(wire, scales, offsets=offsets, bits=bits,
+                               cols=cols, base=base, row_stride=row_stride)
+    ((name, args),) = rec.calls
+    assert name == "repro_unpack_dequantize"
+    dev_offsets = tt._device_offsets(offsets, wire.device)
+    assert args == (
+        wire.data_ptr(), out.data_ptr(), dev_offsets.data_ptr(),
+        scales.data_ptr(), len(offsets), R, wire_cols, base, row_stride, bits,
+        0, 0,
+    )
+    assert dev_offsets.tolist() == list(offsets)
+    assert dev_offsets.dtype == torch.int64
+    # padded width (R, Cw / wire block * 256), sliced to the caller's cols
+    assert out.shape == (R, cols) and out.dtype == torch.float32
+    assert out.stride() == (wire_cols * (2 if bits == 4 else 1), 1)
+    assert tt.LAUNCHES == {"quantize_pack": 0, "unpack_dequantize": 1}
+    tt.reset_launch_counts()
+
+
+def test_unpack_dequantize_hands_the_kernel_an_aligned_wire(monkeypatch):
+    rec = fake_kernel_route(monkeypatch, tt._build, tt)
+    # a contiguous view one byte into its buffer: the kernel loads 16 bytes
+    # at a time, so the wrapper passes an aligned copy
+    wire = torch.zeros(2 * 128 + 1, dtype=torch.uint8)[1:].view(2, 128)
+    assert wire.data_ptr() % 16
+    tt.unpack_dequantize(wire, torch.ones(1), offsets=(0,), bits=4, cols=256)
+    ((_, args),) = rec.calls
+    assert args[0] % 16 == 0 and args[0] != wire.data_ptr()
+    tt.reset_launch_counts()
