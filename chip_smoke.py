@@ -10,13 +10,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 2. ``build``: compile the four sources under
    ``src/repro_torch/kernels/csrc/`` with ``nvcc`` for ``sm_90a``, one
    compiler per source, all at once (seconds); per kernel instance its
-   registers, spill bytes, static and dynamic shared memory and the count
+   registers, spill bytes, static and dynamic shared memory (flash
+   attention's and the rwkv6 scan's at its chunk length) and the count
    of tensor-core instructions in its SASS (``cuobjdump``), and ptxas's
    wgmma warnings.  Fails if a bf16 flash attention instance has no
    ``HGMMA`` (wgmma) instruction.
 3. ``kernels``: both transport kernels against their plain versions on the
-   card, bit for bit, over bits / leaf counts / bases / row strides /
-   ragged widths and the slice's largest bucket; then their times at the
+   card, bit for bit, over every width 2..8 / leaf counts / bases / row
+   strides / ragged widths, inputs one float into their buffer (the
+   wrapper's aligned copy), 40 leaves of a few elements each (boundaries
+   inside one thread's run) and the slice's largest bucket; then their
+   times at the
    main path's bucket shapes (device time per call: CUDA events around 10
    back-to-back calls, median of 5, after warm-up; and the latency of one
    call on an idle card, host time included, median of 25) beside the
@@ -40,7 +44,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    (flash attention, the RWKV6 scan, the Mamba scan) against their plain
    versions on the card, over the CPU tests' matrix (masks, GQA, ragged S
    and d, head widths, state sizes, float32 and bf16) and up to S = 2048,
-   in the working type, at 2e-5 (float32) / 2e-2 (bf16); bf16 attention
+   in the working type, at 2e-5 (float32) / 2e-2 (bf16); the RWKV6 scan
+   also at S = chunk - 1, chunk, chunk + 1 and 2 chunk + 1 of its staged
+   chunk, every head width, B*H below and above the 132 SMs, and a bonus
+   u shared by the batch or one per batch row; bf16 attention
    also over cases ragged against the tensor-core kernel's 128-row query
    and 64-key tiles (S 1000 / 2047, windows 100 / 1000, GQA 4:1 and 8:1,
    softcap, every head width), each output row held to a relative L2
@@ -97,6 +104,8 @@ from repro_torch.configs import (  # noqa: E402
 from repro_torch.core import CommPolicy  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, transport  # noqa: E402
+
+trw = importlib.import_module("repro_torch.kernels.rwkv6_scan")
 from repro_torch.launch import (  # noqa: E402
     init_train_state, make_dp_train_step, mesh_topology,
 )
@@ -228,6 +237,7 @@ def phase_build() -> None:
     libs = _build.build(*(_build.source(n) for n in KERNEL_SOURCES))
     seconds = time.perf_counter() - t0
     fa_lib = importlib.import_module("repro_torch.kernels.flash_attention")._lib()
+    rw_lib = trw._lib()
     kernels, warnings = {}, {}
     for src, lib in libs.items():
         log = lib.with_suffix(".log").read_text()
@@ -243,6 +253,12 @@ def phase_build() -> None:
             row = {"registers": int(regs), "spill_store_bytes": int(spill),
                    "static_smem_bytes": int(smem.group(1)) if smem else 0,
                    **sass.get(fn, {})}
+            rwkv = re.search(r"rwkv6_scan_kernel<(float|__nv_bfloat16), "
+                             r"(\d+)>", name)
+            if rwkv:
+                row["dynamic_smem_bytes"] = rw_lib.repro_rwkv6_scan_smem(
+                    int(rwkv.group(2)), int(rwkv.group(1) != "float"))
+                row["chunk"] = trw.CHUNK
             flash = re.search(r"flash_attention_(tc|simt)<(\d+)>", name)
             if flash:
                 row["dynamic_smem_bytes"] = fa_lib.repro_flash_attention_smem(
@@ -257,24 +273,36 @@ def phase_build() -> None:
           "kernels": kernels, "ptxas_wgmma_warnings": warnings})
 
 
-def _case_offsets(gen, L, span):
+def _case_offsets(gen, L, span, short_from=None):
+    """L leaf starts over [0, span); ``short_from``: the L - 1 cuts fall in
+    the 4 L indices after it, so that leaves of a few elements, and several
+    leaf boundaries, lie inside one thread's run (and one float4)."""
     if L == 1:
         return (0,)
-    cuts = torch.randperm(span - 1, generator=gen)[: L - 1] + 1
+    if short_from is not None:
+        cuts = torch.randperm(4 * L, generator=gen)[: L - 1] + short_from + 1
+    else:
+        cuts = torch.randperm(span - 1, generator=gen)[: L - 1] + 1
     return (0,) + tuple(sorted(int(c) for c in cuts))
 
 
-def _check_case(gen, *, bits, L, base, R, row_stride, cols, x=None):
+def _check_case(gen, *, bits, L, base, R, row_stride, cols, x=None,
+                short=False, misaligned=False):
     """Quantize and dequantize through kernel and plain version; returns
-    the max abs difference (0.0 when bit-identical), raising otherwise."""
+    the max abs difference (0.0 when bit-identical), raising otherwise.
+    ``short``: leaf boundaries packed just after ``base`` (the first warp's
+    runs); ``misaligned``: x is a view one float into its buffer, so the
+    wrapper must hand the kernel an aligned copy."""
     dev = "cuda"
     span = base + (R - 1) * row_stride + cols + 1
-    offsets = _case_offsets(gen, L, span)
+    offsets = _case_offsets(gen, L, span, short_from=base if short else None)
     if x is None:
-        x = torch.randn((R, cols), generator=gen) * (
-            torch.rand((R, cols), generator=gen) * 8
+        x = torch.randn((R * cols + 1,), generator=gen) * (
+            torch.rand((R * cols + 1,), generator=gen) * 8
         )
         x = x.to(dev)
+        x = (x[1:] if misaligned else x[:-1]).view(R, cols)
+        assert (x.data_ptr() % 16 != 0) == misaligned
     qmax = 2 ** (bits - 1) - 1
     # scales at and below the data's absmax/qmax: rounding and clipping
     jitter = 0.25 + torch.rand(L, generator=gen).to(dev)
@@ -308,7 +336,7 @@ def phase_kernels(bucket_sizes, rates) -> dict:
     plan, in fusion order."""
     gen = torch.Generator().manual_seed(SEED)
     n_cases, max_err = 0, 0.0
-    for bits in (2, 3, 4, 8):
+    for bits in range(2, 9):
         for L in (1, 3, 40):
             for base in (0, 1237):
                 for R, rs in ((1, 0), (4, 0), (4, 3001)):
@@ -317,6 +345,16 @@ def phase_kernels(bucket_sizes, rates) -> dict:
                         cols=3001,
                     ))
                     n_cases += 1
+        # widths of whole blocks (no padding, so a misaligned x reaches the
+        # wrapper's copy), and 40 leaves of a few elements each
+        for base, R, rs in ((0, 1, 0), (1237, 4, 3001)):
+            for short, misaligned in ((True, False), (False, True),
+                                      (True, True)):
+                max_err = max(max_err, _check_case(
+                    gen, bits=bits, L=40, base=base, R=R, row_stride=rs,
+                    cols=2560, short=short, misaligned=misaligned,
+                ))
+                n_cases += 1
     big = max(sum(b) for b in bucket_sizes)
     xb = torch.randn((1, big), generator=torch.Generator(device="cuda")
                      .manual_seed(SEED), device="cuda")
@@ -723,6 +761,21 @@ def phase_ops_kernels() -> dict:
                 ops.rwkv6_scan(*args, impl="plain"), dtype,
                 f"{dtype} B,S,H,hd={B},{S},{H},{hd}"))
             cases += 1
+        # ragged against the staged chunk, every head width, B*H below and
+        # above the 132 SMs, one bonus per head (Bu = 1) and per batch row
+        C = trw.CHUNK
+        for S in (C - 1, C, C + 1, 2 * C + 1):
+            for hd in trw.HEAD_DIMS:
+                for B, H in ((2, 4), (5, 32)):
+                    r, k, v, w, u = _rwkv_inputs(gen, B, S, H, hd, dtype)
+                    for ub in (u[None], _rand(gen, B, H, hd, scale=0.1)):
+                        err["rwkv6_scan"] = max(err["rwkv6_scan"], _hold(
+                            "rwkv6_scan", trw.rwkv6_scan_bshd(r, k, v, w, ub),
+                            trw.rwkv6_scan_bshd(r, k, v, w, ub,
+                                                impl="plain"), dtype,
+                            f"{dtype} B,S,H,hd={B},{S},{H},{hd} "
+                            f"Bu={ub.shape[0]}"))
+                        cases += 1
         for B, S, d, N in ((2, 50, 40, 4), (1, 70, 40, 16), (1, 64, 96, 8),
                            (2, 2048, 1000, 16)):
             args = _mamba_inputs(gen, B, S, d, N, dtype)

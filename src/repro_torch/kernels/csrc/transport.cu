@@ -13,23 +13,25 @@
 // writes 4 B.  Each performs a handful of operations per element, far below
 // the card's ratio of operations to bytes.
 //
-// Design.  Quantize: one thread per output byte; neighbouring threads touch
-// neighbouring addresses, so the f32 loads and the one-byte stores coalesce
-// within a warp (16-byte vectors are left to a later change).  Dequantize:
-// each thread decodes 16 wire bytes, loaded as one uint4 (wire rows are
-// 128- or 256-byte blocks, so every row is 16-byte aligned).  A warp's 512
-// bytes go through 512 bytes of shared memory, and lane t takes back the
-// 4-byte word t of each 128-byte segment: 4 int8 elements, or 4 low and 4
-// high int4 nibbles (elements k..k+3 and k+128..k+131 of a block).  So each
-// of the thread's 4 (int8) or 8 (int4) float4 stores is part of one warp
-// store of 512 contiguous bytes; a thread's 16 contiguous bytes decoded in
-// place would put its float4 stores 64 bytes apart across the warp, each
-// warp store writing half sectors over 2 KB.  Each thread finds its leaf once
-// (binary search over the offsets) and selects per element only where a
-// leaf boundary falls inside its run; block and segment indices come from
-// shifts.  The grid is (column blocks, rows): the row comes from
-// blockIdx.y, so no thread divides by the row width.  All flat indices are
-// 64-bit.
+// Design.  Both kernels give each warp 512 wire bytes of one row, so every
+// warp access is one contiguous span.  Wire byte k of a warp's 512 belongs
+// to 128-byte segment k / 128, and lane t owns the 4-byte word t of each of
+// the four segments: 4 int8 elements, or 4 low and 4 high int4 nibbles
+// (elements k..k+3 and k+128..k+131 of a 256-element block).  So each of the
+// lane's 4 (int8) or 8 (int4) float accesses is a float4, and each warp
+// float4 access covers 512 contiguous bytes.  The wire side goes through 512
+// bytes of shared memory per warp, so that lane t moves wire bytes
+// [16 t, 16 t + 16) as one uint4: quantize parks its four words there and
+// stores the uint4, dequantize loads the uint4 and takes its four words
+// back.  A thread's 16 contiguous wire bytes handled in place would put its
+// float4 accesses 64 bytes apart across the warp, each warp access touching
+// half sectors over 2 KB.  Quantize puts all its float4 loads in flight
+// before it converts any.  Each thread finds its leaf once (binary search
+// over the offsets) and selects per element only where a leaf boundary
+// falls inside its run; block and segment indices come from shifts.  The
+// grid is (column blocks, rows): the row comes from blockIdx.y, so no
+// thread divides by the row width.  All flat indices are 64-bit.  Shared
+// memory: 4 KB per block (8 warps x 512 bytes) in each kernel.
 //
 // Numerics match the jnp oracle: IEEE division (__fdiv_rn, never a
 // reciprocal multiply), round half to even (rintf, not roundf), clip to
@@ -50,61 +52,15 @@ constexpr int64_t kBlock = 256;
 constexpr int64_t kHalf = kBlock / 2;
 constexpr int kThreads = 256;
 
-// Per-element leaf scale: leaf l spans global indices [offsets[l],
-// offsets[l+1]); the last leaf whose offset is <= idx wins, exactly the L-1
-// selects of transport.py:106-108.
-__device__ __forceinline__ float leaf_scale(int64_t idx,
-                                            const int64_t* __restrict__ offsets,
-                                            const float* __restrict__ scales,
-                                            int64_t L) {
-  float s = scales[0];
-  for (int64_t l = 1; l < L; ++l) {
-    if (idx >= offsets[l]) s = scales[l];
-  }
-  return s;
-}
-
 __device__ __forceinline__ int quantize_one(float x, float scale, float qmax) {
   float q = rintf(__fdiv_rn(x, scale));
   q = fminf(fmaxf(q, -qmax), qmax);
   return static_cast<int>(q);
 }
 
-// x: (R, C) f32, C a multiple of kBlock.  out: (R, Cw) bytes, Cw = C (int8)
-// or C / 2 (packed int4).  Element (i, c) sits at global index
-// base + i * row_stride + c.
-__global__ void quantize_pack_kernel(const float* __restrict__ x,
-                                     uint8_t* __restrict__ out,
-                                     const int64_t* __restrict__ offsets,
-                                     const float* __restrict__ scales,
-                                     int64_t L, int64_t C, int64_t Cw,
-                                     int64_t base, int64_t row_stride,
-                                     int bits) {
-  const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (k >= Cw) return;
-  const int64_t i = blockIdx.y;
-  const float qmax = static_cast<float>((1 << (bits - 1)) - 1);
-  const int64_t row_base = base + i * row_stride;
-  const float* xr = x + i * C;
-  uint8_t byte;
-  if (bits == 4) {
-    const int64_t c_lo = (k / kHalf) * kBlock + (k % kHalf);
-    const int64_t c_hi = c_lo + kHalf;
-    const int lo = quantize_one(
-        xr[c_lo], leaf_scale(row_base + c_lo, offsets, scales, L), qmax);
-    const int hi = quantize_one(
-        xr[c_hi], leaf_scale(row_base + c_hi, offsets, scales, L), qmax);
-    byte = static_cast<uint8_t>((lo & 0xF) | ((hi & 0xF) << 4));
-  } else {
-    const int q = quantize_one(
-        xr[k], leaf_scale(row_base + k, offsets, scales, L), qmax);
-    byte = static_cast<uint8_t>(static_cast<int8_t>(q));
-  }
-  out[i * Cw + k] = byte;
-}
-
-// The last leaf l with offsets[l] <= idx (the rule of leaf_scale, empty
-// leaves included), by binary search.
+// The leaf of global index idx: leaf l spans [offsets[l], offsets[l+1]),
+// and the last l with offsets[l] <= idx wins, empty leaves included (the
+// L-1 selects of transport.py:106-108), found by binary search.
 __device__ __forceinline__ int64_t leaf_of(int64_t idx,
                                            const int64_t* __restrict__ offsets,
                                            int64_t L) {
@@ -217,6 +173,90 @@ __global__ void unpack_dequantize_kernel(const uint8_t* __restrict__ wire,
   }
 }
 
+// Wire word of 4 quantized elements at global indices idx..idx+3: 4 int8
+// bytes, or (int4) 4 bytes whose low nibbles take lo and high nibbles hi,
+// the elements 128 further on.  Scales are taken in index order.
+__device__ __forceinline__ uint32_t quantize_word(const float4 lo,
+                                                  const float4 hi, bool int4,
+                                                  LeafCursor& cur, int64_t idx,
+                                                  float qmax) {
+  const float xl[4] = {lo.x, lo.y, lo.z, lo.w};
+  const float xh[4] = {hi.x, hi.y, hi.z, hi.w};
+  int ql[4], qh[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    ql[k] = quantize_one(xl[k], cur.at(idx + k), qmax);
+  uint32_t word = 0;
+  if (int4) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      qh[k] = quantize_one(xh[k], cur.at(idx + kHalf + k), qmax);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      word |= static_cast<uint32_t>((ql[k] & 0xF) | ((qh[k] & 0xF) << 4))
+              << (8 * k);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      word |= static_cast<uint32_t>(ql[k] & 0xFF) << (8 * k);
+  }
+  return word;
+}
+
+// x: (R, C) f32, C a multiple of kBlock, 16-byte aligned.  out: (R, Cw)
+// bytes, Cw = C (int8) or C / 2 (packed int4).  Element (i, c) sits at
+// global index base + i * row_stride + c.  Warp w of row i writes wire
+// bytes [512 w, 512 w + 512): lane t loads the elements of word t of each
+// 128-byte segment as float4s (each warp load 512 contiguous bytes),
+// quantizes them into shared memory, and stores bytes [16 t, 16 t + 16) of
+// the warp's 512 as one uint4.
+__global__ void quantize_pack_kernel(const float* __restrict__ x,
+                                     uint8_t* __restrict__ out,
+                                     const int64_t* __restrict__ offsets,
+                                     const float* __restrict__ scales,
+                                     int64_t L, int64_t C, int64_t Cw,
+                                     int64_t base, int64_t row_stride,
+                                     int bits) {
+  __shared__ uint4 stage[kThreads / 32][32];
+  const int lane = threadIdx.x & 31;
+  const int64_t w0 =
+      ((static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5) *
+      kWarpBytes;
+  if (w0 >= Cw) return;  // whole warps leave together
+  const int64_t i = blockIdx.y;
+  const float* xr = x + i * C;
+  const int64_t g = base + i * row_stride;  // global index of column 0
+  const bool int4 = bits == 4;
+  const float qmax = static_cast<float>((1 << (bits - 1)) - 1);
+  // as in the dequantize: segment 0's first column for this lane, and the
+  // column step per 128-byte segment
+  const int64_t c0 = (int4 ? (w0 << 1) : w0) + 4 * lane;
+  const int64_t step = int4 ? kBlock : 128;
+  // every load in flight before the first conversion
+  float4 lo[4], hi[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    lo[j] = hi[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (w0 + 128 * j >= Cw) continue;
+    const float* p = xr + c0 + j * step;
+    lo[j] = __ldg(reinterpret_cast<const float4*>(p));
+    if (int4) hi[j] = __ldg(reinterpret_cast<const float4*>(p + kHalf));
+  }
+  LeafCursor cur(offsets, scales, L, g + c0,
+                 g + c0 + 3 * step + (int4 ? kHalf + 3 : 3));
+  uint32_t* sw = reinterpret_cast<uint32_t*>(stage[threadIdx.x >> 5]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (w0 + 128 * j >= Cw) break;
+    sw[32 * j + lane] =
+        quantize_word(lo[j], hi[j], int4, cur, g + c0 + j * step, qmax);
+  }
+  __syncwarp();
+  if (w0 + 16 * lane < Cw)
+    *reinterpret_cast<uint4*>(out + i * Cw + w0 + 16 * lane) =
+        stage[threadIdx.x >> 5][lane];
+}
+
 int launch_dims(int64_t cols, int64_t rows, dim3* grid) {
   const int64_t blocks = (cols + kThreads - 1) / kThreads;
   if (blocks > 2147483647LL || rows > 65535) return cudaErrorInvalidValue;
@@ -239,9 +279,12 @@ int repro_quantize_pack(const void* x, void* out, const void* offsets,
   if (C % kBlock != 0 || bits < 2 || bits > 8) return cudaErrorInvalidValue;
   int err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return cudaErrorMisalignedAddress;
   const int64_t Cw = bits == 4 ? C / 2 : C;
   dim3 grid;
-  err = launch_dims(Cw, R, &grid);
+  err = launch_dims((Cw + kWarpBytes - 1) / kWarpBytes * 32, R, &grid);
   if (err != cudaSuccess) return err;
   quantize_pack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<uint8_t*>(out),

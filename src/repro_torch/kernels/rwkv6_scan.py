@@ -24,11 +24,17 @@ import torch
 
 from . import _build, ref
 
-__all__ = ["rwkv6_scan", "rwkv6_scan_bshd", "HEAD_DIMS", "LAUNCHES",
+__all__ = ["rwkv6_scan", "rwkv6_scan_bshd", "HEAD_DIMS", "CHUNK", "LAUNCHES",
            "reset_launch_counts"]
 
-#: head widths the kernel is compiled for (thread j holds state column j)
+#: head widths the kernel is compiled for (a thread holds a tile of the
+#: state: 8 rows x 4 columns at hd 64)
 HEAD_DIMS = (16, 32, 64)
+#: time steps per staged chunk, fixed in the kernel (kChunk in
+#: csrc/rwkv6_scan.cu): it keeps a ring of 3 input chunks and 2 chunks of
+#: partial sums in shared memory, 112 KB at hd 64 in float32, so that two
+#: blocks fit an SM
+CHUNK = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches, counted where the kernel is launched
@@ -50,6 +56,8 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.repro_rwkv6_scan_smem.argtypes = [ctypes.c_int64] * 2
+        lib.repro_rwkv6_scan_smem.restype = ctypes.c_int64
         _LIB = lib
     return _LIB
 
@@ -84,6 +92,8 @@ def rwkv6_scan_bshd(
         uf = u.expand(B, H, hd).reshape(B * H, hd)
         of = ref.rwkv6_scan_ref(flat(r), flat(k), flat(v), flat(w), uf)
         return of.reshape(B, H, S, hd).transpose(1, 2)
+    # the kernel stages its inputs with 16-byte copies
+    r, k, v, w = (t.clone() if t.data_ptr() % 16 else t for t in (r, k, v, w))
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     index, stream = _build.stream_args(r)
     rc = _lib().repro_rwkv6_scan(

@@ -192,6 +192,8 @@ def quantize_pack(
             xp, scales, offsets=offsets, bits=bits, base=base,
             row_stride=row_stride, block=block,
         )
+    if xp.data_ptr() % 16:
+        xp = xp.clone()  # the kernel loads x as float4s
     out_cols = Cp // 2 if bits == 4 else Cp
     out = torch.empty((R, out_cols), dtype=wire_dtype(bits), device=xp.device)
     _launch("repro_quantize_pack", xp, out, scales, offsets, R, Cp, base,

@@ -12,8 +12,10 @@ held against the same plain versions on the card by ``chip_smoke.py``
 
 from __future__ import annotations
 
+import ctypes
 import importlib
 import math
+import re
 
 import ml_dtypes
 import numpy as np
@@ -375,3 +377,96 @@ def test_flash_attention_hands_the_kernel_aligned_bases(fake_launch):
     ((_, args),) = fake_launch.calls
     assert all(p % 16 == 0 for p in args[:4])
     assert not {q.data_ptr(), k.data_ptr(), v.data_ptr()} & set(args[:3])
+
+
+@pytest.fixture
+def fake_rwkv(monkeypatch):
+    """Route CPU tensors to the rwkv6 kernel path with a recording
+    library."""
+    rec = fake_kernel_route(monkeypatch, _build, trw)
+    ops.reset_launch_counts()
+    yield rec
+    ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("per_batch_u", [False, True])
+def test_rwkv6_scan_marshals_the_c_call(fake_rwkv, dtype, code, hd,
+                                        per_batch_u):
+    B, S, H = 3, 9, 2
+    r, k, v, w = (torch.zeros((B, S, H, hd), dtype=dtype) for _ in range(4))
+    u = torch.zeros((B if per_batch_u else 1, H, hd))
+    out = trw.rwkv6_scan_bshd(r, k, v, w, u)
+    ((name, args),) = fake_rwkv.calls
+    assert name == "repro_rwkv6_scan"
+    # C signature: r, k, v, w, u, o, B, S, H, hd, u_batch_stride, dtype,
+    # device, stream
+    assert args == (
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        out.data_ptr(), B, S, H, hd, H * hd if per_batch_u else 0, code, 0, 0,
+    )
+    assert out.shape == r.shape and out.dtype == torch.float32
+    assert ops.launch_counts()["rwkv6_scan"] == 1
+
+
+def test_rwkv6_scan_flat_layout_marshals_one_head_per_row(fake_rwkv):
+    r, k, v, w = (torch.zeros((6, 9, 32)) for _ in range(4))
+    out = trw.rwkv6_scan(r, k, v, w, torch.zeros((6, 32)))
+    ((_, args),) = fake_rwkv.calls
+    # (BH, S, hd) goes in as (BH, S, 1, hd), u (BH, 1, hd): a bonus per row
+    assert args[6:12] == (6, 9, 1, 32, 32, 0)
+    assert out.shape == (6, 9, 32)
+
+
+def test_rwkv6_scan_hands_the_kernel_aligned_inputs(fake_rwkv):
+    # contiguous views one element into their buffers: the kernel stages
+    # r, k, v, w with 16-byte copies, so the wrapper passes aligned copies
+    r, k, v, w = (torch.zeros(1 + 9 * 2 * 16)[1:].view(1, 9, 2, 16)
+                  for _ in range(4))
+    assert all(t.data_ptr() % 16 for t in (r, k, v, w))
+    ops.rwkv6_scan(r, k, v, w, torch.zeros((2, 16)))
+    ((_, args),) = fake_rwkv.calls
+    assert all(p % 16 == 0 for p in args[:4])
+    assert not {t.data_ptr() for t in (r, k, v, w)} & set(args[:4])
+
+
+
+class _ArgtypesLib:
+    """Stands in for a loaded library: keeps what ``_lib()`` sets on each
+    C function."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(name, type("CFunction", (), {})())
+
+
+def _c_params(source: str, name: str) -> list:
+    """The ctypes types of an extern "C" function's parameters, read from
+    its definition in the kernel source."""
+    m = re.search(rf"^(?:int|int64_t) {name}\(([^)]*)\)", source, re.M)
+    assert m, f"{name} not defined in the source"
+    scalar = {"int64_t": ctypes.c_int64, "int": ctypes.c_int,
+              "float": ctypes.c_float, "double": ctypes.c_double}
+    params = filter(None, (p.strip() for p in m.group(1).split(",")))
+    return [ctypes.c_void_p if "*" in p else scalar[p.split()[0]]
+            for p in params]
+
+
+@pytest.mark.parametrize("module,fn", [
+    (tfa, "repro_flash_attention"), (tfa, "repro_flash_attention_smem"),
+    (trw, "repro_rwkv6_scan"), (trw, "repro_rwkv6_scan_smem"),
+    (tms, "repro_mamba_scan"),
+])
+def test_ctypes_argtypes_match_the_c_definitions(monkeypatch, module, fn):
+    # ctypes passes what argtypes says: a parameter added to or taken from
+    # a launcher must show in its wrapper's argtypes, type for type
+    lib = _ArgtypesLib()
+    monkeypatch.setattr(_build, "load", lambda source: lib)
+    monkeypatch.setattr(module, "_LIB", None)
+    module._lib()
+    source = module._SOURCE.read_text()
+    assert list(lib.fns[fn].argtypes) == _c_params(source, fn)

@@ -193,3 +193,47 @@ def test_unpack_dequantize_hands_the_kernel_an_aligned_wire(monkeypatch):
     ((_, args),) = rec.calls
     assert args[0] % 16 == 0 and args[0] != wire.data_ptr()
     tt.reset_launch_counts()
+
+
+@pytest.mark.parametrize("bits,cols,wire_cols", [
+    (4, 500, 256), (8, 512, 512), (2, 300, 512), (7, 256, 256),
+])
+@pytest.mark.parametrize("base,row_stride", [(0, 0), (37, 500)])
+def test_quantize_pack_marshals_the_c_call(monkeypatch, bits, cols,
+                                           wire_cols, base, row_stride):
+    rec = fake_kernel_route(monkeypatch, tt._build, tt)
+    tt.reset_launch_counts()
+    R, offsets = 3, (0, 7, 7, 300)
+    x = torch.zeros((R, cols))
+    scales = torch.ones(len(offsets))
+    out = tt.quantize_pack(x, scales, offsets=offsets, bits=bits, base=base,
+                           row_stride=row_stride)
+    ((name, args),) = rec.calls
+    assert name == "repro_quantize_pack"
+    padded = -(-cols // 256) * 256
+    dev_offsets = tt._device_offsets(offsets, x.device)
+    # C signature: x, out, offsets, scales, L, R, C, base, row_stride,
+    # bits, device, stream; C the width padded to whole 256-element blocks
+    assert args[1:] == (
+        out.data_ptr(), dev_offsets.data_ptr(), scales.data_ptr(),
+        len(offsets), R, padded, base, row_stride, bits, 0, 0,
+    )
+    assert args[0] % 16 == 0
+    assert (args[0] == x.data_ptr()) == (padded == cols)
+    assert out.shape == (R, wire_cols) and out.dtype == tt.wire_dtype(bits)
+    assert tt.LAUNCHES == {"quantize_pack": 1, "unpack_dequantize": 0}
+    tt.reset_launch_counts()
+
+
+def test_quantize_pack_hands_the_kernel_an_aligned_x(monkeypatch):
+    rec = fake_kernel_route(monkeypatch, tt._build, tt)
+    # a contiguous view one float into its buffer, of whole blocks (no
+    # padding copy): the kernel loads x as float4s, so the wrapper passes
+    # an aligned copy
+    x = torch.zeros(2 * 512 + 1)[1:].view(2, 512)
+    assert x.data_ptr() % 16
+    tt.quantize_pack(x, torch.ones(1), offsets=(0,), bits=4)
+    ((_, args),) = rec.calls
+    assert args[0] % 16 == 0 and args[0] != x.data_ptr()
+    assert args[5:7] == (2, 512)
+    tt.reset_launch_counts()
