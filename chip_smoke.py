@@ -5,16 +5,19 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 
 Phases (each prints one JSON line; any failure raises and exits non-zero):
 
-1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions.
+1. ``device``: the card (``nvidia-smi`` name and power limit, maximum SM
+   clock), torch and CUDA versions.
 2. ``build``: compile the four sources under
    ``src/repro_torch/kernels/csrc/`` with ``nvcc`` for ``sm_90a``, one
    compiler per source, all at once (seconds); per kernel instance its
    registers, spill bytes, static and dynamic shared memory (flash
    attention's and the rwkv6 scan's at its chunk length) and the count
-   of tensor-core instructions in its SASS (``cuobjdump``), and ptxas's
-   wgmma warnings.  Fails if a bf16 flash attention instance has no
-   ``HGMMA`` (wgmma) instruction.
+   of tensor-core, exponential and float32 instructions in its SASS
+   (``cuobjdump``; for the Mamba scan, float32 instructions per
+   ``MUFU.EX2``), and ptxas's wgmma warnings.  Fails if a flash attention
+   instance, bf16 (``tc::flash_attention_tc``) or float32
+   (``tc32::flash_attention_tf32x3``), has no ``HGMMA`` (wgmma)
+   instruction.
 3. ``kernels``: both transport kernels against their plain versions on the
    card, bit for bit, over every width 2..8 / leaf counts / bases / row
    strides / ragged widths, inputs one float into their buffer (the
@@ -47,10 +50,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    in the working type, at 2e-5 (float32) / 2e-2 (bf16); the RWKV6 scan
    also at S = chunk - 1, chunk, chunk + 1 and 2 chunk + 1 of its staged
    chunk, every head width, B*H below and above the 132 SMs, and a bonus
-   u shared by the batch or one per batch row; bf16 attention
-   also over cases ragged against the tensor-core kernel's 128-row query
-   and 64-key tiles (S 1000 / 2047, windows 100 / 1000, GQA 4:1 and 8:1,
-   softcap, every head width), each output row held to a relative L2
+   u shared by the batch or one per batch row; the Mamba scan also with a
+   general A (random negative, as the CPU tests draw it) and at d = block
+   +- 1, S = chunk +- 1 and 2 chunk + 1 of its channel block and staged
+   chunk, batch 3, every N; attention in both types also over cases
+   ragged against the tensor-core kernels' 128-row query and 64- (32-)key
+   tiles (S 1000 / 2047 / 65, windows 33 / 100 / 1000, GQA 4:1 and 8:1,
+   softcap, every head width), each bf16 output row held to a relative L2
    error of 2^-7 beside the elementwise check.
 9. ``ops_full_width``: the second slice's main path, ``kernels.ops`` at the
    widths of the models the repository supports (constants below, each
@@ -64,8 +70,15 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    term of one bf16 step (2^-7) of each row's largest |plain| value, and
    each row to a relative L2 error of 2^-7 (a dropped 64-key tile at row
    32k reads about 0.04); gemma2's cases are timed again with the softcap
-   off, as a measure of its share; then gemma2's two layers run once more
-   in float32 (the SIMT kernel), held at 2e-5 and timed.
+   off, as a measure of its share.  The Mamba scan's bound is the larger
+   of its bytes and its exponentials (one ``MUFU.EX2`` per state entry and
+   step) over 16 a clock per SM at the maximum SM clock.  Then the float32
+   path (phase ``ops_full_width_f32_control``): gemma2's two layers and
+   minicpm's shape once more in float32 (the 3xTF32 kernel), counters
+   zeroed before and read after, held at 2e-5 and timed beside a bound of
+   3 x operations over the TF32 rate (and over the SIMT rate, for
+   continuity), minicpm also beside ``scaled_dot_product_attention`` in
+   float32 with TF32 off.
 
 Then a line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits non-zero
@@ -85,6 +98,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_SRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "transport.cu"
@@ -106,18 +120,28 @@ from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, transport  # noqa: E402
 
 trw = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+tms = importlib.import_module("repro_torch.kernels.mamba_scan")
 from repro_torch.launch import (  # noqa: E402
     init_train_state, make_dp_train_step, mesh_topology,
 )
 
 # Peak device-memory rate per card (NVIDIA data sheets), bytes/s, the
-# float32 rate outside the tensor cores and the dense bf16 tensor-core rate,
-# op/s.
+# float32 rate outside the tensor cores and the dense bf16 and TF32
+# tensor-core rates, op/s.
+class Rates(NamedTuple):
+    bw: float
+    f32: float
+    bf16: float
+    tf32: float
+
+
 CARDS = {
-    "H100 80GB HBM3": (3.35e12, 67e12, 989e12),   # H100 SXM
-    "H100 PCIe": (2.0e12, 51e12, 756e12),
-    "H200": (4.8e12, 67e12, 989e12),
+    "H100 80GB HBM3": Rates(3.35e12, 67e12, 989e12, 495e12),   # H100 SXM
+    "H100 PCIe": Rates(2.0e12, 51e12, 756e12, 378e12),
+    "H200": Rates(4.8e12, 67e12, 989e12, 495e12),
 }
+# MUFU.EX2 per clock per SM (the special-function unit's rate on Hopper)
+EX2_PER_CLOCK = 16
 KERNEL_SOURCES = ("transport", "flash_attention", "rwkv6_scan", "mamba_scan")
 
 # Widths of the second slice's main path, from the JAX package's configs
@@ -144,7 +168,7 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def card_rates(name: str) -> tuple[float, float, float]:
+def card_rates(name: str) -> Rates:
     for key, rates in CARDS.items():
         if key in name:
             return rates
@@ -195,17 +219,24 @@ def call_ms(fn, reps: int = 25, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 
-def phase_device() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    emit({"phase": "device", "nvidia_smi": smi,
+
+
+def phase_device() -> tuple[str, float]:
+    """The ``nvidia-smi`` name and power limit line, and the card's
+    maximum SM clock in Hz."""
+    smi = _smi("name,power.limit")
+    clock = _smi("clocks.max.sm")
+    emit({"phase": "device", "nvidia_smi": smi, "clocks_max_sm": clock,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count()})
-    return smi
+          "count": torch.cuda.device_count(),
+          "sms": torch.cuda.get_device_properties(0).multi_processor_count})
+    return smi, float(clock.split()[0]) * 1e6
 
 
 def _kernel_name(mangled: str) -> str:
@@ -219,20 +250,25 @@ def _kernel_name(mangled: str) -> str:
     return name.split("(")[0].replace("void ", "") or mangled
 
 
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "MUFU.EX2", "FFMA", "FMUL", "FADD")
+
+
 def _sass_counts(lib: Path) -> dict[str, dict[str, int]]:
-    """Tensor-core and TMA instructions per kernel in a library's SASS."""
+    """Tensor-core, TMA, exponential and float32 instructions per kernel in
+    a library's SASS."""
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     counts = {}
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
         name, _, code = body.partition("\n")
-        counts[name.strip()] = {op: len(re.findall(rf"\b{op}\b", code))
-                                for op in ("HGMMA", "HMMA", "UTMALDG")}
+        counts[name.strip()] = {
+            op: len(re.findall(rf"\b{re.escape(op)}\b", code))
+            for op in SASS_OPS}
     return counts
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     t0 = time.perf_counter()
     libs = _build.build(*(_build.source(n) for n in KERNEL_SOURCES))
     seconds = time.perf_counter() - t0
@@ -259,18 +295,25 @@ def phase_build() -> None:
                 row["dynamic_smem_bytes"] = rw_lib.repro_rwkv6_scan_smem(
                     int(rwkv.group(2)), int(rwkv.group(1) != "float"))
                 row["chunk"] = trw.CHUNK
-            flash = re.search(r"flash_attention_(tc|simt)<(\d+)>", name)
+            flash = re.search(r"flash_attention_(tc|tf32x3)<(\d+)>", name)
             if flash:
                 row["dynamic_smem_bytes"] = fa_lib.repro_flash_attention_smem(
                     int(flash.group(2)), int(flash.group(1) == "tc"))
-                if flash.group(1) == "tc" and not row.get("HGMMA"):
+                if not row.get("HGMMA"):
                     raise AssertionError(f"{name}: no wgmma (HGMMA) in SASS")
+            if "mamba_scan_kernel" in name and row.get("MUFU.EX2"):
+                # one MUFU.EX2 per state entry and step: the float32
+                # instructions beside each, over the whole function
+                row["fp32_per_ex2"] = sum(
+                    row[op] for op in ("FFMA", "FMUL", "FADD")
+                ) / row["MUFU.EX2"]
             kernels[src.name][name] = row
         warnings[src.name] = [line.strip() for line in log.splitlines()
                               if "wgmma" in line.lower()]
     emit({"phase": "build", "seconds": seconds, "parallel": True,
           "libraries": [lib.name for lib in libs.values()],
           "kernels": kernels, "ptxas_wgmma_warnings": warnings})
+    return kernels
 
 
 def _case_offsets(gen, L, span, short_from=None):
@@ -368,7 +411,7 @@ def phase_kernels(bucket_sizes, rates) -> dict:
           "tolerance": "bit-identical (torch.equal)",
           "max_abs_err": max_err, "largest_bucket": [1, big]})
 
-    bw, flops, _ = rates
+    bw, flops = rates.bw, rates.f32
     timing = {}
     for bits in (4, 8):
         wi = transport.wire_itemsize(bits)
@@ -656,12 +699,17 @@ def _rwkv_inputs(gen, B, S, H, hd, dtype):
     return r, k, v, w.to(dtype), _rand(gen, H, hd, scale=0.1)
 
 
-def _mamba_inputs(gen, B, S, d, N, dtype):
-    # Mamba's own initialisation: dt log-uniform in [1e-3, 1e-1], A = -[1..N]
+def _mamba_inputs(gen, B, S, d, N, dtype, general_A=False):
+    # Mamba's own initialisation: dt log-uniform in [1e-3, 1e-1], A = -[1..N];
+    # general_A: A = -exp(N(0, 0.5^2)) per entry, as the CPU tests draw it
+    # (tests/test_torch_ops.py), so no shortcut for A = -[1..N] passes
     u = torch.rand((B, S, d), generator=gen, device="cuda")
     dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
-    A = -torch.arange(1, N + 1, dtype=torch.float32, device="cuda").expand(
-        d, N).contiguous()
+    if general_A:
+        A = -torch.exp(_rand(gen, d, N, scale=0.5))
+    else:
+        A = -torch.arange(1, N + 1, dtype=torch.float32,
+                          device="cuda").expand(d, N).contiguous()
     return (_rand(gen, B, S, d, dtype=dtype), dt.to(dtype), A,
             _rand(gen, B, S, N, dtype=dtype), _rand(gen, B, S, N, dtype=dtype))
 
@@ -714,13 +762,15 @@ def _hold(name, got, want, dtype, where, *, row_atol=None) -> float:
 
 FLASH_MASKS = ((True, None, None), (True, 32, None), (True, None, 30.0),
                (False, None, None), (True, 256, 50.0), (False, 64, None))
-# bf16 only: ragged against the tensor-core kernel's 128-row query and
-# 64-key tiles (S, window), GQA 4:1 and 8:1, softcap, every head width
-FLASH_BF16_SHAPES = ((1, 1000, 8, 2, 16), (1, 2047, 8, 1, 32),
-                     (2, 1000, 4, 1, 64), (1, 2047, 8, 2, 128),
-                     (1, 65, 8, 1, 128))
-FLASH_BF16_MASKS = ((True, 100, None), (False, 1000, None),
-                    (True, 1000, 50.0), (False, None, 30.0))
+# ragged against the tensor-core kernels' tiles: 128 query rows; 64 keys
+# (bf16), or 64 keys up to hd 64 and 32 at hd 128 (float32) (S, window),
+# GQA 4:1 and 8:1, softcap, every head width; both types
+FLASH_RAGGED_SHAPES = ((1, 1000, 8, 2, 16), (1, 2047, 8, 1, 32),
+                       (2, 1000, 4, 1, 64), (1, 2047, 8, 2, 128),
+                       (1, 65, 8, 1, 128))
+FLASH_RAGGED_MASKS = ((True, 100, None), (False, 1000, None),
+                      (True, 1000, 50.0), (False, None, 30.0),
+                      (True, 33, None))
 
 
 def phase_ops_kernels() -> dict:
@@ -733,9 +783,8 @@ def phase_ops_kernels() -> dict:
               (2, 2048, 4, 2, 128), (1, 2048, 2, 2, 16), (1, 1000, 4, 1, 64))
     for dtype in (torch.float32, torch.bfloat16):
         flash = [(shape, FLASH_MASKS) for shape in shapes]
-        if dtype == torch.bfloat16:
-            flash += [(shape, FLASH_MASKS + FLASH_BF16_MASKS)
-                      for shape in FLASH_BF16_SHAPES]
+        flash += [(shape, FLASH_MASKS + FLASH_RAGGED_MASKS)
+                  for shape in FLASH_RAGGED_SHAPES]
         for (B, S, H, KV, hd), masks in flash:
             q, k, v = _flash_inputs(gen, B, S, H, KV, hd, dtype)
             for causal, window, softcap in masks:
@@ -776,13 +825,21 @@ def phase_ops_kernels() -> dict:
                             f"{dtype} B,S,H,hd={B},{S},{H},{hd} "
                             f"Bu={ub.shape[0]}"))
                         cases += 1
-        for B, S, d, N in ((2, 50, 40, 4), (1, 70, 40, 16), (1, 64, 96, 8),
-                           (2, 2048, 1000, 16)):
-            args = _mamba_inputs(gen, B, S, d, N, dtype)
+        mamba = [(shape, general) for general in (False, True)
+                 for shape in ((2, 50, 40, 4), (1, 70, 40, 16), (1, 64, 96, 8),
+                               (2, 2048, 1000, 16))]
+        # ragged against the kernel's channel block and staged chunk, with a
+        # general A: d = block +- 1, S = chunk +- 1 and 2 chunk + 1
+        Cd, Cs = tms.CHANNELS, tms.CHUNK
+        mamba += [((3, S, d, N), True) for d in (Cd - 1, Cd + 1)
+                  for S in (Cs - 1, Cs + 1, 2 * Cs + 1)
+                  for N in tms.STATE_SIZES]
+        for (B, S, d, N), general in mamba:
+            args = _mamba_inputs(gen, B, S, d, N, dtype, general_A=general)
             err["mamba_scan"] = max(err["mamba_scan"], _hold(
                 "mamba_scan", ops.mamba_scan(*args),
                 ops.mamba_scan(*args, impl="plain"), dtype,
-                f"{dtype} B,S,d,N={B},{S},{d},{N}"))
+                f"{dtype} B,S,d,N={B},{S},{d},{N} general_A={general}"))
             cases += 1
     emit({"phase": "ops_kernels", "cases": cases,
           "tolerance": {"float32": TOL[torch.float32],
@@ -821,8 +878,29 @@ def _flash_plain_by_head(q, k, v, **kw):
     return out
 
 
-def phase_ops_full_width(rates) -> dict:
-    bw, f32_peak, bf16_peak = rates
+def _mamba_bound(args, out, bw, clock, fp32_per_ex2) -> dict:
+    """The scan's bound: the larger of its bytes over the memory rate and
+    its exponentials (one MUFU.EX2 per state entry and step) over the
+    special-function units' rate at the card's maximum SM clock."""
+    x, dt, A, Bm, Cm = args
+    B, S, d = x.shape
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (x, dt, A, Bm, Cm)) + out.numel() * 4
+    ex2 = B * S * d * A.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_bytes, t_ex2 = nbytes / bw, ex2 / (sms * EX2_PER_CLOCK * clock)
+    return {"bytes": nbytes, "ops": ex2, "ops_counted": "MUFU.EX2",
+            "bound_ms": max(t_bytes, t_ex2) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ex2 else "operations",
+            "bytes_bound_ms": t_bytes * 1e3, "ex2_bound_ms": t_ex2 * 1e3,
+            "clock_hz": clock, "sms": sms, "ex2_per_clock": EX2_PER_CLOCK,
+            "fp32_per_ex2_sass": fp32_per_ex2}
+
+
+def phase_ops_full_width(rates, clock, fp32_per_ex2) -> dict:
+    """``clock``: the card's maximum SM clock in Hz; ``fp32_per_ex2``: the
+    float32 scan's float32 instructions per MUFU.EX2 in its SASS."""
+    bw = rates.bw
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf = torch.bfloat16
     g, m, r, j = GEMMA2, MINICPM, RWKV6, JAMBA
@@ -891,7 +969,7 @@ def phase_ops_full_width(rates) -> dict:
             B, S, H, hd = q.shape
             nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
             n_ops = 4 * hd * _band_pairs(S, kw["causal"], kw["window"]) * B * H
-            bound_ms, bound_by = _bound(nbytes, n_ops, bw, bf16_peak)
+            bound_ms, bound_by = _bound(nbytes, n_ops, bw, rates.bf16)
             if kw["softcap"] is None and kw["window"] is None \
                     and k.shape[2] == H:
                 t = lambda x: x.transpose(1, 2)
@@ -909,16 +987,12 @@ def phase_ops_full_width(rates) -> dict:
                 + out.numel() * 4
             # per state entry and step: r.S (2) and w*S + k*v (3)
             n_ops = 5 * hd * hd * B * H * S
-            bound_ms, bound_by = _bound(nbytes, n_ops, bw, f32_peak)
+            bound_ms, bound_by = _bound(nbytes, n_ops, bw, rates.f32)
             library_note = "none: no PyTorch call computes the recurrence"
         else:
-            x, dt, A, Bm, Cm = args
-            B, S, d = x.shape
-            N = A.shape[1]
-            nbytes = sum(t.numel() * t.element_size()
-                         for t in (x, dt, A, Bm, Cm)) + out.numel() * 4
-            n_ops = (1 + 7 * N) * B * S * d  # dt*x; per n: dt*A, exp, 2 fma
-            bound_ms, bound_by = _bound(nbytes, n_ops, bw, f32_peak)
+            extra.update(_mamba_bound(args, out, bw, clock, fp32_per_ex2))
+            nbytes, n_ops = extra.pop("bytes"), extra.pop("ops")
+            bound_ms, bound_by = extra.pop("bound_ms"), extra.pop("bound_by")
             library_note = "none: no PyTorch call computes the recurrence"
         row = {"case": name, "kernel": kern, "config": config,
                "shape": [list(a.shape) for a in args],
@@ -934,35 +1008,69 @@ def phase_ops_full_width(rates) -> dict:
         results.append(row)
     del outs, cases
 
-    # float32 control: gemma2's two layers again at full length in float32,
-    # held at 2e-5, so every key tile of the 32k band is checked tightly;
-    # and timed: float32 inputs take the SIMT kernel, bound here by the
-    # float32 rate outside the tensor cores
+    # float32: gemma2's two layers again at full length, and minicpm's
+    # shape, in float32 (the 3xTF32 kernel), held at 2e-5, so every key tile
+    # of the 32k band is checked tightly; its own path, counters zeroed just
+    # before and read just after; then timed, minicpm beside
+    # scaled_dot_product_attention in float32 (TF32 off, set in main)
     qkv32 = tuple(t.float() for t in qkv)
     del qkv
+    f32_cases = [(name, qkv32, kw) for name, kw in gemma2_masks] + [
+        ("flash_minicpm", _flash_inputs(gen, m["B"], m["S"], m["H"], m["KV"],
+                                        m["hd"], torch.float32, 1.0),
+         dict(causal=True, window=None, softcap=None))]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs = [ops.flash_attention(*args, **kw) for _, args, kw in f32_cases]
+    torch.cuda.synchronize()
+    f32_launches = ops.launch_counts()["flash_attention"]
+    if f32_launches != len(f32_cases):
+        raise AssertionError(
+            f"float32 path: {f32_launches} flash launches, want "
+            f"{len(f32_cases)}")
     control, f32_times = {}, {}
-    for name, kw in gemma2_masks:
-        got = ops.flash_attention(*qkv32, **kw)
+    for (name, args, kw), got in zip(f32_cases, outs):
         control[name] = _hold("flash_attention", got,
-                              _flash_plain_by_head(*qkv32, **kw),
+                              _flash_plain_by_head(*args, **kw),
                               torch.float32, name + " (float32)")
-        del got
-        q = qkv32[0]
+        q, k, v = args
         B, S, H, hd = q.shape
-        bound_ms, bound_by = _bound(
-            2 * (q.numel() + qkv32[1].numel()) * 4,
-            4 * hd * _band_pairs(S, kw["causal"], kw["window"]) * B * H,
-            bw, f32_peak)
-        f32_times[name] = {
-            "ms": median_ms(lambda: ops.flash_attention(*qkv32, **kw),
-                            reps=3, warmup=1, launches=2),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+        nbytes = 2 * (q.numel() + k.numel()) * 4
+        n_ops = 4 * hd * _band_pairs(S, kw["causal"], kw["window"]) * B * H
+        # 3xTF32: three TF32 products for each float32 one
+        bound_ms, bound_by = _bound(nbytes, 3 * n_ops, bw, rates.tf32)
+        long = S > 4096
+        reps = dict(reps=3, warmup=1, launches=2) if long else {}
+        row = {"ms": median_ms(lambda: ops.flash_attention(*args, **kw),
+                               **reps),
+               "call_ms": call_ms(lambda: ops.flash_attention(*args, **kw),
+                                  reps=5 if long else 25),
+               "plain_ms": median_ms(
+                   lambda: _flash_plain_by_head(*args, **kw), reps=1,
+                   warmup=0, launches=1),
+               "plain_reps": 1,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_ms_simt_rate": _bound(nbytes, n_ops, bw, rates.f32)[0],
+               "bytes": nbytes, "ops": n_ops,
+               "library_ms": None, "library": "none: no single PyTorch call "
+               "computes the tanh soft-cap inside the softmax"}
+        if kw["softcap"] is None and kw["window"] is None and k.shape[2] == H:
+            t = lambda x: x.transpose(1, 2)
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                t(q), t(k), t(v), is_causal=kw["causal"])
+            row["library_ms"] = median_ms(sdpa)
+            row["library"] = ("scaled_dot_product_attention(is_causal=True), "
+                              "float32, TF32 off")
+            row["library_max_abs_err"] = (t(sdpa()) - got).abs().max().item()
+        f32_times[name] = row
+    del outs, f32_cases, qkv32
     emit({"phase": "ops_full_width_f32_control", "dtype": "float32",
-          "tolerance": TOL[torch.float32], "max_abs_err": control,
-          "times": f32_times})
-    del qkv32
+          "kernel": "tc32::flash_attention_tf32x3<hd> after tc32::split_kv<hd>",
+          "launches": f32_launches, "tolerance": TOL[torch.float32],
+          "max_abs_err": control, "times": f32_times})
     torch.cuda.empty_cache()
-    return {"launches": launches, "cases": results, "f32_control": control}
+    return {"launches": launches, "cases": results, "f32_control": control,
+            "f32_times": f32_times, "f32_launches": f32_launches}
 
 
 def _detached(tree):
@@ -975,9 +1083,13 @@ def main() -> None:
     # full float32 matmuls everywhere (the plain reference's precision)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device()
+    smi, clock = phase_device()
     rates = card_rates(torch.cuda.get_device_name(0))
-    phase_build()
+    build = phase_build()
+    # the float32 scan at N 16 (jamba's instance)
+    fp32_per_ex2 = next(
+        (row.get("fp32_per_ex2") for name, row in build["mamba_scan.cu"].items()
+         if re.search(r"mamba_scan_kernel(<float, 16>|IfLi16E)", name)), None)
     # the main path's bucket shapes, from the plan the train step makes
     from repro_torch.core import Topology, grad_sync
     from repro_torch.models import init_params
@@ -995,7 +1107,7 @@ def main() -> None:
     phase_train_vs_plain(run)
     phase_reference_small()
     ops_err = phase_ops_kernels()
-    full = phase_ops_full_width(rates)
+    full = phase_ops_full_width(rates, clock, fp32_per_ex2)
     t4 = k["timing"][4]
     replaces = {"quantize_pack": "src/repro/kernels/transport.py:158",
                 "unpack_dequantize": "src/repro/kernels/transport.py:222"}
@@ -1035,6 +1147,25 @@ def main() -> None:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                 for c in rows},
         })
+    # attention's two instances: bf16 on the main path above; float32 on
+    # its own path (phase ops_full_width_f32_control), summed the same way
+    f32 = full["f32_times"]
+    kernels[2]["instances"] = {
+        "bfloat16": "tc::flash_attention_tc<hd>",
+        "float32": "tc32::flash_attention_tf32x3<hd> after tc32::split_kv<hd>",
+    }
+    kernels[2]["float32"] = {
+        "launches": full["f32_launches"],
+        "max_abs_err": max(full["f32_control"].values()),
+        **{key: sum(c[key] for c in f32.values())
+           for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "operations" if any(
+            c["bound_by"] == "operations" for c in f32.values()) else "bytes",
+        "library_ms": None,
+        "cases": {name: {key: c[key] for key in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_ms_simt_rate",
+            "library_ms")} for name, c in f32.items()},
+    }
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,10 +7,14 @@ masking, a sliding window (``0 <= q - k < window`` with causal,
 before the mask, and scale ``1/sqrt(hd)``.  The kernel
 (``csrc/flash_attention.cu``) reads the (B, S, H, hd) layout directly and
 maps query head h to KV head ``h // (H // KV)``, so neither the head
-flattening nor the GQA repeat is materialised.  bf16 inputs run on the
-tensor cores (wgmma fed by TMA; P is rounded to bf16 before P·V), float32
-inputs on the SIMT cores in float32, as the reference's float32 contract
-needs (TF32 would break it).
+flattening nor the GQA repeat is materialised.  Both types run on the
+tensor cores (wgmma fed by TMA).  bf16: P is rounded to bf16 before P·V.
+float32: every product in 3xTF32 (x_hi·y_hi + x_hi·y_lo + x_lo·y_hi, with
+tf32 hi and lo parts), which keeps the reference's float32 contract where
+one TF32 product would break it.  wgmma takes tf32 operands only K-major,
+so a pre-pass kernel, launched by the same call, first writes the hi and
+lo parts of K and of V transposed (V^T, keys contiguous) into scratch
+that the call allocates.
 
 Routing (:func:`._build.use_kernel`): a CUDA tensor launches the kernel, a
 CPU tensor takes the plain version :func:`.ref.flash_attention_ref`;
@@ -29,11 +33,14 @@ import torch
 from . import _build, ref
 
 __all__ = ["flash_attention", "flash_attention_bshd", "HEAD_DIMS",
-           "LAUNCHES", "reset_launch_counts"]
+           "KEY_PAD", "LAUNCHES", "reset_launch_counts"]
 
 #: head widths the kernel is compiled for
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: float32: the split V^T's key axis is padded to a multiple of this
+#: (kKeyPad in csrc/flash_attention.cu)
+KEY_PAD = 64
+_DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches, counted where the kernel is launched
 LAUNCHES: dict[str, int] = {"flash_attention": 0}
@@ -50,10 +57,15 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load(_SOURCE)
+        ptrs, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
         fn = lib.repro_flash_attention
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 8
-                       + [ctypes.c_float] * 2
-                       + [ctypes.c_int64, ctypes.c_void_p])
+        fn.argtypes = [ptrs] * 4 + [i64] * 7 + [f32] * 2 + [i64, ptrs]
+        fn.restype = ctypes.c_int
+        fn = lib.repro_flash_attention_tf32x3_split
+        fn.argtypes = [ptrs] * 4 + [i64] * 6 + [ptrs]
+        fn.restype = ctypes.c_int
+        fn = lib.repro_flash_attention_tf32x3
+        fn.argtypes = [ptrs] * 4 + [i64] * 8 + [f32] * 2 + [i64, ptrs]
         fn.restype = ctypes.c_int
         smem = lib.repro_flash_attention_smem
         smem.argtypes = [ctypes.c_int64, ctypes.c_int64]
@@ -121,16 +133,33 @@ def flash_attention_bshd(
     if not _build.use_kernel(impl, q, k, v):
         return _plain(q, k, v, causal, window, softcap)
     B, S, H, hd = q.shape
-    # the tensor maps of the bf16 kernel want 16-byte aligned bases
+    KV = k.shape[2]
+    # the kernels' tensor maps want 16-byte aligned bases
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     index, stream = _build.stream_args(q)
-    rc = _lib().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, H, k.shape[2], hd, _DTYPES[q.dtype], int(bool(causal)),
-        0 if window is None else int(window), 1.0 / math.sqrt(hd),
-        0.0 if softcap is None else float(softcap), index, stream,
-    )
+    mask = (int(bool(causal)), 0 if window is None else int(window),
+            1.0 / math.sqrt(hd), 0.0 if softcap is None else float(softcap))
+    lib = _lib()
+    if q.dtype == torch.bfloat16:
+        rc = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, H, KV, hd, *mask, index, stream,
+        )
+    else:
+        # 3xTF32: K's tf32 hi / lo planes, and V^T's with S padded
+        Sp = -(-S // KEY_PAD) * KEY_PAD
+        ks = torch.empty((2, B, S, KV, hd), dtype=q.dtype, device=q.device)
+        vts = torch.empty((2, B, KV, hd, Sp), dtype=q.dtype, device=q.device)
+        rc = lib.repro_flash_attention_tf32x3_split(
+            k.data_ptr(), v.data_ptr(), ks.data_ptr(), vts.data_ptr(),
+            B, S, KV, hd, Sp, index, stream,
+        )
+        _build.check(rc, "flash_attention (tf32x3 split)")
+        rc = lib.repro_flash_attention_tf32x3(
+            q.data_ptr(), ks.data_ptr(), vts.data_ptr(), out.data_ptr(),
+            B, S, H, KV, hd, Sp, *mask, index, stream,
+        )
     _build.check(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out

@@ -8,6 +8,10 @@ row and channel, with N float32 state values that start at 0,
 The caller adds the D-skip and the gating.  The kernel is
 ``csrc/mamba_scan.cu``; x, dt, B and C may be float32 or bf16 (one type
 for all four, read as such by the kernel: no cast pass), A is float32.
+The kernel stages its inputs with 16-byte copies: the wrapper hands it
+copies of views that do not start on 16 bytes, and of x and dt padded to
+a row of a whole number of 16-byte pieces when d is not one (the output
+is then sliced back to d columns).
 
 Routing (:func:`._build.use_kernel`): a CUDA tensor launches the kernel, a
 CPU tensor takes the plain version :func:`.ref.mamba_scan_ref`;
@@ -23,10 +27,15 @@ import torch
 
 from . import _build, ref
 
-__all__ = ["mamba_scan", "STATE_SIZES", "LAUNCHES", "reset_launch_counts"]
+__all__ = ["mamba_scan", "STATE_SIZES", "CHANNELS", "CHUNK", "LAUNCHES",
+           "reset_launch_counts"]
 
-#: state sizes N the kernel is compiled for
+#: state sizes N the kernel is compiled for (up to 8 states a thread)
 STATE_SIZES = (4, 8, 16)
+#: channels per block and time steps per staged chunk, fixed in the kernel
+#: (kChannels, kChunk in csrc/mamba_scan.cu)
+CHANNELS = 32
+CHUNK = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches, counted where the kernel is launched
@@ -45,7 +54,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load(_SOURCE)
         fn = lib.repro_mamba_scan
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
@@ -83,13 +92,19 @@ def mamba_scan(
         )
     if not _build.use_kernel(impl, x, dt, A, B, C):
         return ref.mamba_scan_ref(x, dt, A, B, C)
-    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    # rows of x / dt (and y) of whole 16-byte pieces, from 16-byte bases
+    ld = -(-d * x.element_size() // 16) * 16 // x.element_size()
+    if ld != d:
+        x, dt = (torch.nn.functional.pad(t, (0, ld - d)) for t in (x, dt))
+    x, dt, B, C = (t.clone() if t.data_ptr() % 16 else t
+                   for t in (x, dt, B, C))
+    y = torch.empty((Bsz, S, ld), dtype=torch.float32, device=x.device)
     index, stream = _build.stream_args(x)
     rc = _lib().repro_mamba_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), Bsz, S, d, N, _DTYPES[x.dtype], index,
-        stream,
+        C.data_ptr(), y.data_ptr(), Bsz, S, d, ld, N, _DTYPES[x.dtype],
+        index, stream,
     )
     _build.check(rc, "mamba_scan")
     LAUNCHES["mamba_scan"] += 1
-    return y
+    return y if ld == d else y[..., :d].contiguous()

@@ -332,6 +332,8 @@ def fake_launch(monkeypatch):
     ops.reset_launch_counts()
 
 
+# code: the route, 1 = bf16 (one C call), 0 = float32 (the 3xTF32 split
+# pre-pass, then the attention)
 @pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
                                         (torch.bfloat16, 1)])
 @pytest.mark.parametrize("causal,window,softcap", [
@@ -345,15 +347,58 @@ def test_flash_attention_marshals_the_c_call(fake_launch, dtype, code, causal,
     k, v = (torch.zeros((B, S, KV, hd), dtype=dtype) for _ in range(2))
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=softcap)
-    ((name, args),) = fake_launch.calls
-    assert name == "repro_flash_attention"
-    assert args == (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, H, KV, hd, code, int(causal), 0 if window is None else window,
-        1.0 / math.sqrt(hd), 0.0 if softcap is None else softcap, 0, 0,
-    )
+    mask = (int(causal), 0 if window is None else window,
+            1.0 / math.sqrt(hd), 0.0 if softcap is None else softcap, 0, 0)
+    if code == 1:
+        ((name, args),) = fake_launch.calls
+        assert name == "repro_flash_attention"
+        assert args == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), B, S, H, KV, hd, *mask)
+    else:
+        (split, _), (name, args) = fake_launch.calls
+        assert split == "repro_flash_attention_tf32x3_split"
+        assert name == "repro_flash_attention_tf32x3"
+        assert args[0] == q.data_ptr() and args[3] == out.data_ptr()
+        assert args[4:] == (B, S, H, KV, hd, tfa.KEY_PAD, *mask)
     assert out.shape == q.shape and out.dtype == dtype
     assert out.data_ptr() not in (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("S,Sp", [(9, 64), (64, 64), (65, 128)])
+def test_flash_attention_float32_marshals_the_split_then_the_attention(
+        fake_launch, monkeypatch, S, Sp):
+    # the pre-pass writes K's tf32 hi / lo planes (2, B, S, KV, hd) and
+    # V^T's (2, B, KV, hd, Sp), S padded to KEY_PAD keys, into scratch the
+    # wrapper allocates; the attention reads them
+    B, H, KV, hd = 2, 4, 2, 32
+    q = torch.zeros((B, S, H, hd))
+    k, v = torch.zeros((B, S, KV, hd)), torch.zeros((B, S, KV, hd))
+    made = []
+    empty = torch.empty
+
+    def spy(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy)
+    out = ops.flash_attention(q, k, v, window=7)
+    monkeypatch.undo()
+    ks, vts = (t for t in made if t.dim() == 5)
+    assert ks.shape == (2, B, S, KV, hd) and vts.shape == (2, B, KV, hd, Sp)
+    assert ks.dtype == vts.dtype == torch.float32
+    (split, sargs), (name, args) = fake_launch.calls
+    # C signatures: k, v, ks, vts, B, S, KV, hd, Sp, device, stream; then
+    # q, ks, vts, o, B, S, H, KV, hd, Sp, causal, window, scale, softcap,
+    # device, stream
+    assert split == "repro_flash_attention_tf32x3_split"
+    assert sargs == (k.data_ptr(), v.data_ptr(), ks.data_ptr(),
+                     vts.data_ptr(), B, S, KV, hd, Sp, 0, 0)
+    assert name == "repro_flash_attention_tf32x3"
+    assert args == (q.data_ptr(), ks.data_ptr(), vts.data_ptr(),
+                    out.data_ptr(), B, S, H, KV, hd, Sp, 1, 7,
+                    1.0 / math.sqrt(hd), 0.0, 0, 0)
     assert ops.launch_counts()["flash_attention"] == 1
 
 
@@ -363,13 +408,13 @@ def test_flash_attention_flat_layout_marshals_one_head(fake_launch):
     out = tfa.flash_attention(q, k, v, window=4)
     ((_, args),) = fake_launch.calls
     # (BH, S, hd) goes in as (BH, S, 1, hd): one head, no KV grouping
-    assert args[4:12] == (6, 9, 1, 1, 32, 1, 1, 4)
+    assert args[4:11] == (6, 9, 1, 1, 32, 1, 4)
     assert out.shape == (6, 9, 32) and out.dtype == torch.bfloat16
 
 
 def test_flash_attention_hands_the_kernel_aligned_bases(fake_launch):
-    # contiguous views one element into their buffers: the bf16 kernel's
-    # tensor maps need 16-byte aligned bases, so the wrapper passes copies
+    # contiguous views one element into their buffers: the kernels' tensor
+    # maps need 16-byte aligned bases, so the wrapper passes copies
     q, k, v = (torch.zeros(1 + 9 * 2 * 16, dtype=torch.bfloat16)[1:]
                .view(1, 9, 2, 16) for _ in range(3))
     assert all(t.data_ptr() % 16 for t in (q, k, v))
@@ -377,6 +422,16 @@ def test_flash_attention_hands_the_kernel_aligned_bases(fake_launch):
     ((_, args),) = fake_launch.calls
     assert all(p % 16 == 0 for p in args[:4])
     assert not {q.data_ptr(), k.data_ptr(), v.data_ptr()} & set(args[:3])
+    # float32: the pre-pass reads aligned k, v; the attention an aligned q
+    fake_launch.calls.clear()
+    q, k, v = (t.float() for t in (q, k, v))
+    q, k, v = (torch.zeros(1 + t.numel())[1:].view(t.shape) for t in (q, k, v))
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    ops.flash_attention(q, k, v)
+    (_, sargs), (_, args) = fake_launch.calls
+    assert all(p % 16 == 0 for p in sargs[:4] + args[:4])
+    assert not {k.data_ptr(), v.data_ptr()} & set(sargs[:2])
+    assert args[0] != q.data_ptr()
 
 
 @pytest.fixture
@@ -432,6 +487,56 @@ def test_rwkv6_scan_hands_the_kernel_aligned_inputs(fake_rwkv):
     assert not {t.data_ptr() for t in (r, k, v, w)} & set(args[:4])
 
 
+@pytest.fixture
+def fake_mamba(monkeypatch):
+    """Route CPU tensors to the mamba kernel path with a recording
+    library."""
+    rec = fake_kernel_route(monkeypatch, _build, tms)
+    ops.reset_launch_counts()
+    yield rec
+    ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("d", [32, 33])
+def test_mamba_scan_marshals_the_c_call(fake_mamba, dtype, code, N, d):
+    Bsz, S = 3, 9
+    x, dt = (torch.zeros((Bsz, S, d), dtype=dtype) for _ in range(2))
+    Bm, Cm = (torch.zeros((Bsz, S, N), dtype=dtype) for _ in range(2))
+    A = torch.zeros((d, N))
+    y = ops.mamba_scan(x, dt, A, Bm, Cm)
+    ((name, args),) = fake_mamba.calls
+    assert name == "repro_mamba_scan"
+    # rows of x / dt and y of whole 16-byte pieces: d = 33 is padded to
+    # 36 floats or 40 bf16 values, and y sliced back to d columns
+    ld = d if d == 32 else {torch.float32: 36, torch.bfloat16: 40}[dtype]
+    # C signature: x, dt, A, B, C, y, Bsz, S, D, ld, N, dtype, device,
+    # stream
+    assert args[6:] == (Bsz, S, d, ld, N, code, 0, 0)
+    assert args[2:5] == (A.data_ptr(), Bm.data_ptr(), Cm.data_ptr())
+    if ld == d:
+        assert args[:2] == (x.data_ptr(), dt.data_ptr())
+        assert args[5] == y.data_ptr()
+    else:
+        assert not {x.data_ptr(), dt.data_ptr(), y.data_ptr()} & set(args)
+    assert y.shape == (Bsz, S, d) and y.dtype == torch.float32
+    assert y.is_contiguous()
+    assert ops.launch_counts()["mamba_scan"] == 1
+
+
+def test_mamba_scan_hands_the_kernel_aligned_inputs(fake_mamba):
+    # contiguous views one element into their buffers: the kernel stages x,
+    # dt, B, C with 16-byte copies, so the wrapper passes aligned copies
+    x, dt = (torch.zeros(1 + 9 * 32)[1:].view(1, 9, 32) for _ in range(2))
+    Bm, Cm = (torch.zeros(1 + 9 * 16)[1:].view(1, 9, 16) for _ in range(2))
+    assert all(t.data_ptr() % 16 for t in (x, dt, Bm, Cm))
+    ops.mamba_scan(x, dt, torch.zeros((32, 16)), Bm, Cm)
+    ((_, args),) = fake_mamba.calls
+    assert all(args[i] % 16 == 0 for i in (0, 1, 3, 4, 5))
+    assert not {t.data_ptr() for t in (x, dt, Bm, Cm)} & set(args[:6])
+
 
 class _ArgtypesLib:
     """Stands in for a loaded library: keeps what ``_lib()`` sets on each
@@ -460,6 +565,8 @@ def _c_params(source: str, name: str) -> list:
     (tfa, "repro_flash_attention"), (tfa, "repro_flash_attention_smem"),
     (trw, "repro_rwkv6_scan"), (trw, "repro_rwkv6_scan_smem"),
     (tms, "repro_mamba_scan"),
+    (tfa, "repro_flash_attention_tf32x3_split"),
+    (tfa, "repro_flash_attention_tf32x3"),
 ])
 def test_ctypes_argtypes_match_the_c_definitions(monkeypatch, module, fn):
     # ctypes passes what argtypes says: a parameter added to or taken from
