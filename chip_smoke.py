@@ -57,7 +57,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    ragged against the tensor-core kernels' 128-row query and 64- (32-)key
    tiles (S 1000 / 2047 / 65, windows 33 / 100 / 1000, GQA 4:1 and 8:1,
    softcap, every head width), each bf16 output row held to a relative L2
-   error of 2^-7 beside the elementwise check.
+   error of 2^-7 beside the elementwise check; attention with keys longer
+   and shorter than the queries (Sk != S), in both types: causal and not,
+   windows, the softcap, GQA, S and Sk ragged against the tiles, and
+   windows that leave query rows with no valid key (those rows must be 0,
+   as in the plain version); the RWKV6 scan with a bf16 bonus ``u`` and
+   the Mamba scan with a bf16 ``A`` (cast to float32 by the wrappers).
 9. ``ops_full_width``: the second slice's main path, ``kernels.ops`` at the
    widths of the models the repository supports (constants below, each
    with its line in ``src/repro/configs/``): launch counters zeroed, each
@@ -79,6 +84,23 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    3 x operations over the TF32 rate (and over the SIMT rate, for
    continuity), minicpm also beside ``scaled_dot_product_attention`` in
    float32 with TF32 off.
+10. ``rs_transport``: the two transport kernels in the exact calls the
+   compressed sharded sync's reduce-scatter half makes
+   (``grad_sync._compressed_reduce_scatter``), as the last rank of a 2x4
+   and of a 4x2 grid sees them, at minicpm-2b's largest leaf (the
+   122,753 x 2304 embedding), int8 and int4: quantize-pack of the (n, B)
+   stripe with ``row_stride=B`` and ``base = lane * S``, unpack-dequantize
+   of the n received rows with ``row_stride=0``, ``cols=B`` and the
+   block's base.  Wire bytes and outputs bit-identical to the plain
+   versions; device time per call (as phase ``kernels``) beside the bytes
+   bound and the plain versions' times.
+11. ``collectives_world1``: minicpm-2b-4l's gradient tree from one
+   backward on the card; ``CommContext.sync_grads_sharded`` then
+   ``grad_sync.unshard_grads`` (plain and int4) must give back every leaf bit for
+   bit, on the card (timed); each of the twelve registered engines and
+   the three NAP extensions, called at world size 1 on a CUDA tensor,
+   must return its input bit for bit on the card; the reduce-scatter /
+   allgather dispatch decisions over a few grids and sizes are printed.
 
 Then a line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits non-zero
@@ -685,10 +707,11 @@ def _rand(gen, *shape, dtype=torch.float32, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def _flash_inputs(gen, B, S, H, KV, hd, dtype, scale=0.5):
+def _flash_inputs(gen, B, S, H, KV, hd, dtype, scale=0.5, Sk=None):
+    Sk = S if Sk is None else Sk
     return (_rand(gen, B, S, H, hd, dtype=dtype, scale=scale),
-            _rand(gen, B, S, KV, hd, dtype=dtype, scale=scale),
-            _rand(gen, B, S, KV, hd, dtype=dtype, scale=scale))
+            _rand(gen, B, Sk, KV, hd, dtype=dtype, scale=scale),
+            _rand(gen, B, Sk, KV, hd, dtype=dtype, scale=scale))
 
 
 def _rwkv_inputs(gen, B, S, H, hd, dtype):
@@ -773,12 +796,36 @@ FLASH_RAGGED_MASKS = ((True, 100, None), (False, 1000, None),
                       (True, 33, None))
 
 
+# keys longer / shorter than the queries: (B, S, Sk, H, KV, hd), ragged
+# against the 128-row query tiles and the 64- (32-) key tiles, GQA
+FLASH_SK_SHAPES = ((1, 1000, 2047, 8, 2, 64), (1, 2047, 1000, 8, 1, 128),
+                   (2, 129, 65, 4, 4, 32), (1, 65, 129, 4, 2, 16),
+                   (1, 300, 33, 8, 2, 128), (1, 64, 1, 2, 1, 64))
+# with Sk < S the windows leave the last queries without a valid key
+FLASH_SK_MASKS = ((True, None, None), (False, None, None),
+                  (True, 64, None), (False, 100, 50.0), (True, None, 30.0),
+                  (True, 16, 50.0))
+
+
+def _no_key_rows(S, Sk, causal, window) -> int:
+    """Query rows with no valid key (start-aligned masks)."""
+    q = np.arange(S)[:, None]
+    k = np.arange(Sk)[None, :]
+    ok = np.ones((S, Sk), dtype=bool)
+    if causal:
+        ok &= q >= k
+    if window:
+        ok &= q - k < window
+    return int((~ok.any(axis=1)).sum())
+
+
 def phase_ops_kernels() -> dict:
     """The three ``ops`` kernels against their plain versions over the CPU
     tests' matrix, up to S = 2048; returns the max error per kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     err = {"flash_attention": 0.0, "rwkv6_scan": 0.0, "mamba_scan": 0.0}
     rel_l2, rel_l2_at, cases = 0.0, None, 0
+    sk_cases = no_key_rows = bf16_param_cases = 0
     shapes = ((1, 100, 4, 2, 32), (1, 128, 2, 2, 64), (1, 64, 2, 1, 128),
               (2, 2048, 4, 2, 128), (1, 2048, 2, 2, 16), (1, 1000, 4, 1, 64))
     for dtype in (torch.float32, torch.bfloat16):
@@ -801,6 +848,30 @@ def phase_ops_kernels() -> dict:
                     r = _row_rel_l2("flash_attention", got, want32, where)
                     if r > rel_l2:
                         rel_l2, rel_l2_at = r, where
+                cases += 1
+        for B, S, Sk, H, KV, hd in FLASH_SK_SHAPES:
+            q, k, v = _flash_inputs(gen, B, S, H, KV, hd, dtype, Sk=Sk)
+            for causal, window, softcap in FLASH_SK_MASKS:
+                kw = dict(causal=causal, window=window, softcap=softcap)
+                where = (f"{dtype} B,S,Sk,H,KV,hd={B},{S},{Sk},{H},{KV},{hd} "
+                         f"{kw}")
+                got = ops.flash_attention(q, k, v, **kw)
+                want32 = ops.flash_attention(q.float(), k.float(), v.float(),
+                                             impl="plain", **kw)
+                err["flash_attention"] = max(err["flash_attention"], _hold(
+                    "flash_attention", got, want32.to(dtype), dtype, where))
+                if dtype == torch.bfloat16:
+                    r = _row_rel_l2("flash_attention", got, want32, where)
+                    if r > rel_l2:
+                        rel_l2, rel_l2_at = r, where
+                dead = _no_key_rows(S, Sk, causal, window)
+                if dead:
+                    if not bool((got[:, S - dead:] == 0).all()):
+                        raise AssertionError(
+                            f"flash_attention: rows without a key are not 0 "
+                            f"at {where}")
+                    no_key_rows += dead
+                sk_cases += 1
                 cases += 1
         for B, S, H, hd in ((1, 100, 2, 32), (2, 64, 2, 16), (1, 40, 1, 64),
                             (2, 2048, 4, 64)):
@@ -841,7 +912,30 @@ def phase_ops_kernels() -> dict:
                 ops.mamba_scan(*args, impl="plain"), dtype,
                 f"{dtype} B,S,d,N={B},{S},{d},{N} general_A={general}"))
             cases += 1
+        # a bf16 bonus u / a bf16 A, cast to float32 by the wrappers
+        for B, S, H, hd in ((2, 2 * C + 1, 4, 64), (1, 100, 2, 32)):
+            r, k, v, w, u = _rwkv_inputs(gen, B, S, H, hd, dtype)
+            args = (r, k, v, w, u.to(torch.bfloat16))
+            err["rwkv6_scan"] = max(err["rwkv6_scan"], _hold(
+                "rwkv6_scan", ops.rwkv6_scan(*args),
+                ops.rwkv6_scan(*args, impl="plain"), dtype,
+                f"{dtype} B,S,H,hd={B},{S},{H},{hd} bf16 u"))
+            bf16_param_cases += 1
+            cases += 1
+        for B, S, d, N in ((2, 2 * Cs + 1, Cd + 1, 16), (1, 70, 40, 4)):
+            x, dt, A, Bm, Cm = _mamba_inputs(gen, B, S, d, N, dtype,
+                                             general_A=True)
+            args = (x, dt, A.to(torch.bfloat16), Bm, Cm)
+            err["mamba_scan"] = max(err["mamba_scan"], _hold(
+                "mamba_scan", ops.mamba_scan(*args),
+                ops.mamba_scan(*args, impl="plain"), dtype,
+                f"{dtype} B,S,d,N={B},{S},{d},{N} bf16 A"))
+            bf16_param_cases += 1
+            cases += 1
     emit({"phase": "ops_kernels", "cases": cases,
+          "flash_sk_ne_s_cases": sk_cases,
+          "flash_rows_without_key_checked_zero": no_key_rows,
+          "bf16_u_or_A_cases": bf16_param_cases,
           "tolerance": {"float32": TOL[torch.float32],
                         "bfloat16": TOL[torch.bfloat16],
                         "bfloat16_flash_row_rel_l2": ROW_REL_L2},
@@ -1073,6 +1167,160 @@ def phase_ops_full_width(rates, clock, fp32_per_ex2) -> dict:
             "f32_times": f32_times, "f32_launches": f32_launches}
 
 
+# minicpm-2b's largest leaf: the embedding, vocab 122,753 x d_model 2304
+# (src/repro/configs/archs.py:42-53)
+EMBED_ELEMS = 122_753 * 2304
+RS_GRIDS = ((2, 4), (4, 2))
+
+
+def phase_rs_transport(rates) -> dict:
+    """The transport kernels in the calls of the sharded sync's compressed
+    reduce-scatter, as the last rank (node n-1, lane ppn-1) of each grid
+    makes them at the embedding leaf; bit-identical to the plain versions
+    and timed.  Returns the times per (grid, bits)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    e = EMBED_ELEMS
+    rows, max_err = [], 0.0
+    for n, ppn in RS_GRIDS:
+        node, lane = n - 1, ppn - 1
+        S = -(-e // ppn)          # the intra reduce-scatter's stripe
+        B = -(-S // n)            # one node's block of it
+        base = lane * S
+        block_base = base + node * B
+        stripe = torch.randn((n, B), generator=gen, device="cuda")
+        for bits in (8, 4):
+            qmax = 2 ** (bits - 1) - 1
+            # the agreed leaf scale times ppn (the stripe sums ppn ranks)
+            s1 = (stripe.abs().max() / qmax * 1.0001).reshape(1)
+            kq = dict(offsets=(0,), bits=bits, base=base, row_stride=B)
+            kd = dict(offsets=(0,), bits=bits, cols=B, base=block_base,
+                      row_stride=0)
+            w = transport.quantize_pack(stripe, s1, **kq)
+            wp = transport.quantize_pack(stripe, s1, impl="plain", **kq)
+            # the n rows this rank receives: every node's copy of its block
+            d = transport.unpack_dequantize(w, s1, **kd)
+            dp = transport.unpack_dequantize(w, s1, impl="plain", **kd)
+            torch.cuda.synchronize()
+            if not (torch.equal(w, wp) and torch.equal(d, dp)):
+                raise AssertionError(
+                    f"rs_transport: kernel != plain at {n}x{ppn} bits={bits}")
+            del wp, dp
+            wi = transport.wire_itemsize(bits)
+            q_ms = median_ms(lambda: transport.quantize_pack(stripe, s1, **kq))
+            d_ms = median_ms(lambda: transport.unpack_dequantize(w, s1, **kd))
+            qp_ms = median_ms(lambda: transport.quantize_pack(
+                stripe, s1, impl="plain", **kq), reps=3, launches=1)
+            dp_ms = median_ms(lambda: transport.unpack_dequantize(
+                w, s1, impl="plain", **kd), reps=3, launches=1)
+            elems = n * B
+            # each kernel reads its input once and writes its output once
+            q_bytes = elems * (4 + wi)
+            ops_ = elems * 5
+            bound = lambda nb: max(nb / rates.bw, ops_ / rates.f32) * 1e3
+            rows.append({
+                "grid": f"{n}x{ppn}", "rank": [node, lane], "bits": bits,
+                "stripe": [n, B], "base": base, "block_base": block_base,
+                "quantize_ms": q_ms, "quantize_plain_ms": qp_ms,
+                "dequantize_ms": d_ms, "dequantize_plain_ms": dp_ms,
+                "bytes": q_bytes, "bound_ms": bound(q_bytes),
+                "bound_by": "bytes" if q_bytes / rates.bw >= ops_ / rates.f32
+                else "operations",
+                "quantize_share_of_bound": bound(q_bytes) / q_ms,
+                "dequantize_share_of_bound": bound(q_bytes) / d_ms,
+            })
+            del w, d
+        del stripe
+        torch.cuda.empty_cache()
+    emit({"phase": "rs_transport", "leaf_elems": e,
+          "bit_identical": True, "tolerance": "bit-identical (torch.equal)",
+          "max_abs_err": max_err, "calls": rows,
+          "library_ms": None,
+          "library_ms_reason": "no single PyTorch call computes a "
+          "per-leaf-scaled quantize-and-pack (or its inverse)"})
+    return {"max_abs_err": max_err, "rows": rows}
+
+
+def phase_collectives_world1() -> None:
+    """The reduce-scatter / allgather surface on CUDA tensors at world
+    size 1, where the reference's ``n <= 1`` paths are identities: every
+    leaf and every engine must come back bit for bit, on the card."""
+    from repro_torch import tree
+    from repro_torch.core import CommContext, Topology, comm, extensions
+    from repro_torch.core import grad_sync
+
+    cfg = MINICPM_2B_4L
+    data = SyntheticLM(cfg.vocab_size, SEQ, BATCH, seed=SEED)
+    policy = CommPolicy(algorithm="nap", mean=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state = init_train_state(cfg, OPT, policy, generator=gen, device="cuda")
+    model = state["model"]
+    leaves, td = tree.flatten(model.params())
+    loss, _ = model(data.batch(0, "cuda"))
+    grads = tree.unflatten(td, list(torch.autograd.grad(loss, leaves)))
+    del state, model, leaves, loss
+    n_params = sum(g.numel() for g in tree.leaves(grads))
+    topo = mesh_topology(1, 1)
+    roundtrip = {}
+    for name, kw in (("plain", {}), ("int4", dict(compress_bits=4))):
+        ctx = CommContext(topo, CommPolicy(mean=True, **kw))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards = ctx.sync_grads_sharded(grads)
+        full = grad_sync.unshard_grads(shards, grads, ctx=ctx)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        pairs = list(zip(tree.leaves(full), tree.leaves(grads)))
+        same = all(a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in pairs)
+        shards_cuda = all(t.is_cuda for t in tree.leaves(shards))
+        if not (same and shards_cuda):
+            raise AssertionError(f"sharded round trip ({name}) changed a "
+                                 "leaf or left the card")
+        roundtrip[name] = {"ms": ms, "leaves": len(pairs),
+                           "bitwise_equal": same}
+        del shards, full
+    del grads
+    torch.cuda.empty_cache()
+    x = torch.randn((1000, 37), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    engines = {}
+    for key, spec in comm.registered_engines().items():
+        if spec.collective == "allreduce":
+            y = CommContext(topo).allreduce(x, algorithm=spec.name)
+        elif spec.collective == "reduce_scatter":
+            y = CommContext(topo).reduce_scatter(x, algorithm=spec.name)
+        else:
+            y = CommContext(topo).allgather(x.reshape(-1), elems=x.numel(),
+                                            algorithm=spec.name)
+        ok = y.is_cuda and torch.equal(y.reshape(x.shape), x)
+        engines[key] = ok
+    for name, fn in (
+        ("nap_allgather", lambda: extensions.nap_allgather(
+            x, topology=topo)[0]),
+        ("nap_reduce_scatter", lambda: extensions.nap_reduce_scatter(
+            x[None], topology=topo)[0]),
+        ("nap_allreduce_large", lambda: extensions.nap_allreduce_large(
+            x, topology=topo)),
+    ):
+        y = fn()
+        engines[f"extension:{name}"] = y.is_cuda and torch.equal(y, x)
+    decisions = {}
+    for n, ppn in ((1, 1), (1, 8), (2, 4), (4, 2), (16, 8)):
+        ctx = CommContext(Topology.of(n, ppn))
+        for coll in ("reduce_scatter", "allgather"):
+            for nbytes in (4096, 1 << 24, EMBED_ELEMS * 4):
+                decisions[f"{coll}/{n}x{ppn}/{nbytes}"] = ctx.dispatch(
+                    nbytes, collective=coll).engine
+    emit({"phase": "collectives_world1", "config": cfg.name,
+          "grad_params": n_params, "sharded_roundtrip": roundtrip,
+          "engines_identity_on_cuda": engines,
+          "engines_registered": len(comm.registered_engines()),
+          "dispatch": decisions})
+    if not all(engines.values()) or len(engines) != 15:
+        raise AssertionError(f"an engine changed its input at world size 1 "
+                             f"or left the card: {engines}")
+
+
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
@@ -1108,6 +1356,8 @@ def main() -> None:
     phase_reference_small()
     ops_err = phase_ops_kernels()
     full = phase_ops_full_width(rates, clock, fp32_per_ex2)
+    rs = phase_rs_transport(rates)
+    phase_collectives_world1()
     t4 = k["timing"][4]
     replaces = {"quantize_pack": "src/repro/kernels/transport.py:158",
                 "unpack_dequantize": "src/repro/kernels/transport.py:222"}
@@ -1119,7 +1369,17 @@ def main() -> None:
          "max_abs_err": k["max_abs_err"],
          "ms": t4[name][0], "plain_ms": t4[name][1],
          "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
-         "library_ms": None}
+         "library_ms": None,
+         # the sharded sync's compressed reduce-scatter calls (phase
+         # rs_transport), per grid and width
+         "rs_transport": {
+             f"{r['grid']}/int{r['bits']}": {
+                 "ms": r["quantize_ms" if name == "quantize_pack"
+                         else "dequantize_ms"],
+                 "plain_ms": r["quantize_plain_ms" if name == "quantize_pack"
+                               else "dequantize_plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+             for r in rs["rows"]}}
         for name in ("quantize_pack", "unpack_dequantize")
     ]
     ops_replaces = {

@@ -22,12 +22,24 @@ engine returns its input.
 * :func:`nap_allreduce` — the paper's NAP (§III): intra allreduce, then
   ``ceil(log_ppn(n))`` inter-node exchange steps each closed by an intra
   allreduce.
+* :func:`rd_allreduce` / :func:`smp_allreduce` — the paper's baselines
+  (§II, Fig. 3; §II.A, Fig. 4): node-agnostic recursive doubling and
+  MPICH's master-process algorithm, executed from their ``napalg``
+  point-to-point schedules.
+* :func:`ring_allreduce` — the bandwidth-optimal ring reduce-scatter +
+  allgather over the whole grid; :func:`rabenseifner_allreduce` — an
+  intra-node reduce, then reduce-scatter + allgather over the nodes.
 * :func:`mla_allreduce` — multi-lane node-aware: intra reduce-scatter
   stripes the node partial over the ``ppn`` lanes, each lane runs RS+AG
   over the nodes, an intra allgather rebuilds the payload; optionally in
   ``C`` ragged pipeline chunks.
 * :func:`mla_pipelined_allreduce` — MLA at the model-optimal depth.
 * :func:`psum_allreduce` — one native allreduce over the whole grid.
+* :func:`mla_reduce_scatter` / :func:`mla_allgather` — the two halves of
+  MLA as collectives of their own: rank ``(node j, lane r)`` owns block
+  ``(r, j)`` of the stripe layout, ``ceil(ceil(e/ppn)/n)`` elements;
+  :func:`flat_reduce_scatter` / :func:`flat_allgather` — one level over
+  the whole grid, in rank order.
 """
 
 from __future__ import annotations
@@ -43,9 +55,17 @@ from . import napalg
 
 __all__ = [
     "nap_allreduce",
+    "rd_allreduce",
+    "smp_allreduce",
+    "ring_allreduce",
+    "rabenseifner_allreduce",
     "mla_allreduce",
     "mla_pipelined_allreduce",
     "psum_allreduce",
+    "mla_reduce_scatter",
+    "mla_allgather",
+    "flat_reduce_scatter",
+    "flat_allgather",
     "ALL_OPS",
     "MLA_OPS",
 ]
@@ -203,6 +223,80 @@ def nap_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
     return v
 
 
+# ---------------------------------------------------------------------------
+# point-to-point schedule executor (RD / SMP baselines)
+# ---------------------------------------------------------------------------
+
+
+def _run_p2p_schedule(x: torch.Tensor, sched, rank: int, op: str):
+    """Execute a :class:`napalg.P2PSchedule`: one ``batch_isend_irecv``
+    round per step over the world group; a receiving rank folds the
+    payload in (``combine``) or takes it."""
+    fold = _f32_fold(_OPS[op][0], op, x.dtype)
+    v = x
+    for step, rmask in zip(sched.steps, napalg.p2p_recv_masks(sched)):
+        recv = _ppermute(v, step.pairs, rank)
+        if rmask[rank]:
+            v = fold(v, recv) if step.combine else recv
+    return v
+
+
+def rd_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
+                 pipeline_chunks=None) -> torch.Tensor:
+    """Node-agnostic recursive doubling over the flattened grid (paper
+    Fig. 3): ``log2(p)`` pairwise exchange steps, plus the MPICH fold
+    before and after for a non-power-of-two ``p``.  Every rank of a node
+    crosses the slow domain with the whole payload at each inter-node
+    step, the duplicate traffic NAP removes."""
+    groups = topology.require_groups()
+    sched = napalg.build_rd_schedule(topology.n_nodes, topology.ppn)
+    return _run_p2p_schedule(x, sched, groups.rank, op)
+
+
+def smp_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
+                  pipeline_chunks=None) -> torch.Tensor:
+    """MPICH SMP allreduce (paper §II.A, Fig. 4): a binomial reduce to
+    lane 0 of each node, recursive doubling among those masters, a
+    binomial broadcast back.  One active rank per node."""
+    groups = topology.require_groups()
+    sched = napalg.build_smp_schedule(topology.n_nodes, topology.ppn)
+    return _run_p2p_schedule(x, sched, groups.rank, op)
+
+
+# ---------------------------------------------------------------------------
+# bandwidth-regime baselines
+# ---------------------------------------------------------------------------
+
+
+def ring_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
+                   pipeline_chunks=None) -> torch.Tensor:
+    """Bandwidth-optimal ring allreduce over all ``p`` ranks in rank
+    order: ``p - 1`` neighbour shifts of reduce-scatter (rank ``i`` ends
+    owning the sum of chunk ``i + 1``), then ``p - 1`` of allgather; each
+    rank moves ``2 s (p-1)/p`` bytes."""
+    groups = topology.require_groups()
+    p = topology.group
+    if p == 1:
+        return x
+    fold = _f32_fold(_OPS[op][0], op, x.dtype)
+    flat = x.reshape(-1)
+    size = flat.numel()
+    chunks = _pad_to(flat, p, op).reshape(p, -1).clone()
+    idx = groups.rank
+    fwd = [(i, (i + 1) % p) for i in range(p)]
+    acc = chunks[idx % p]
+    for k in range(p - 1):
+        recv = _ppermute(acc, fwd, idx)
+        acc = fold(recv, chunks[(idx - k - 1) % p])
+    chunks[(idx + 1) % p] = acc
+    cur = acc
+    for k in range(p - 1):
+        cur = _ppermute(cur, fwd, idx)
+        chunks[(idx - k) % p] = cur  # chunk (idx - k - 1) + 1 arrives
+    out = chunks.reshape(-1)[:size]
+    return out.reshape(x.shape).to(x.dtype)
+
+
 def _pad_to(flat: torch.Tensor, k: int, op: str) -> torch.Tensor:
     pad = (-flat.numel()) % k
     if not pad:
@@ -232,6 +326,20 @@ def _rabenseifner(x: torch.Tensor, group, op: str) -> torch.Tensor:
             shard = _AXIS_REDUCERS[op](gathered)
     out = _all_gather(shard, group).reshape(-1)[:size]
     return out.reshape(x.shape).to(x.dtype)
+
+
+def rabenseifner_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
+                           pipeline_chunks=None) -> torch.Tensor:
+    """The large-message baseline: reduce inside the node first, so that
+    one payload per node crosses the slow domain, then reduce-scatter +
+    allgather over the nodes (sub-f32 sums folded in f32)."""
+    if op not in MLA_OPS:
+        raise NotImplementedError(
+            f"rabenseifner path supports {sorted(MLA_OPS)}, got {op!r}"
+        )
+    groups = topology.require_groups()
+    v = _all_reduce(x, groups.intra, op)
+    return _rabenseifner(v, groups.inter, op)
 
 
 def _mla_one_chunk(flat: torch.Tensor, groups, ppn: int, op: str):
@@ -304,3 +412,93 @@ def psum_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
     if op == "sum" and topology.n_nodes > 1 and _needs_f32_accum(x.dtype):
         return _all_reduce(x.float(), groups.world, op).to(x.dtype)
     return _all_reduce(x, groups.world, op)
+
+
+# ---------------------------------------------------------------------------
+# reduce-scatter / allgather
+# ---------------------------------------------------------------------------
+
+
+def _level_reduce_scatter(flat: torch.Tensor, group, op: str, *,
+                          f32_accum: bool = False) -> torch.Tensor:
+    """One reduce-scatter level over ``group``: pad to its size ``k`` with
+    the op's identity, rank ``t`` gets the reduced tile ``t``.  ``sum``
+    runs the native reduce-scatter; ``max`` / ``min`` (and, with
+    ``f32_accum``, a sub-f32 float sum) an ``all_to_all`` and a local
+    fold, the same bytes."""
+    k = group.size
+    if k <= 1:
+        return flat
+    tiles = _pad_to(flat, k, op).reshape(k, -1)
+    wide = f32_accum and op == "sum" and _needs_f32_accum(flat.dtype)
+    if op == "sum" and not wide:
+        return _reduce_scatter(tiles, group)
+    gathered = _all_to_all(tiles, group)
+    if wide:
+        return gathered.float().sum(dim=0).to(flat.dtype)
+    return _AXIS_REDUCERS[op](gathered)
+
+
+def mla_reduce_scatter(x: torch.Tensor, *, topology,
+                       op: str = "sum") -> torch.Tensor:
+    """Node-aware striped reduce-scatter, the RS half of the MLA
+    allreduce: the node partial is striped over the ``ppn`` lanes (intra
+    reduce-scatter), then each lane reduce-scatters its stripe over the
+    nodes (a sub-f32 sum folded in f32).  Rank ``(node j, lane r)``
+    returns the reduced block ``(r, j)``, ``ceil(ceil(e/ppn)/n)``
+    elements (padded with the op's identity to that uniform size).
+    Inverse: :func:`mla_allgather`."""
+    if op not in MLA_OPS:
+        raise NotImplementedError(
+            f"mla_reduce_scatter supports {sorted(MLA_OPS)}, got {op!r}"
+        )
+    groups = topology.require_groups()
+    stripe = _level_reduce_scatter(x.reshape(-1), groups.intra, op)
+    return _level_reduce_scatter(stripe, groups.inter, op, f32_accum=True)
+
+
+def mla_allgather(x: torch.Tensor, *, topology,
+                  elems: int | None = None) -> torch.Tensor:
+    """Node-aware striped allgather, the exact inverse of
+    :func:`mla_reduce_scatter`: each lane gathers its blocks over the
+    nodes (its stripe), then an intra-node allgather rebuilds the flat
+    payload.  ``elems`` is the original size (default: no padding)."""
+    groups = topology.require_groups()
+    n, ppn = topology.n_nodes, topology.ppn
+    shard = x.reshape(-1)
+    if elems is None:
+        elems = shard.numel() * n * ppn
+    stripe_len = -(-int(elems) // ppn)  # the intra reduce-scatter's stripe
+    if n > 1:
+        stripe = _all_gather(shard, groups.inter).reshape(-1)[:stripe_len]
+    else:
+        stripe = shard[:stripe_len]
+    full = _all_gather(stripe, groups.intra).reshape(-1) if ppn > 1 else stripe
+    return full[: int(elems)]
+
+
+def flat_reduce_scatter(x: torch.Tensor, *, topology, op: str = "sum",
+                        f32_accum: bool = False) -> torch.Tensor:
+    """Single-level (node-agnostic) reduce-scatter over all ranks in rank
+    order, the fallback engine.  ``f32_accum`` (set when the grid crosses
+    nodes) folds a sub-f32 sum in f32."""
+    if op not in MLA_OPS:
+        raise NotImplementedError(
+            f"flat_reduce_scatter supports {sorted(MLA_OPS)}, got {op!r}"
+        )
+    groups = topology.require_groups()
+    return _level_reduce_scatter(x.reshape(-1), groups.world, op,
+                                 f32_accum=f32_accum)
+
+
+def flat_allgather(x: torch.Tensor, *, topology,
+                   elems: int | None = None) -> torch.Tensor:
+    """Single-level allgather over all ranks, the inverse of
+    :func:`flat_reduce_scatter`."""
+    groups = topology.require_groups()
+    shard = x.reshape(-1)
+    p = topology.group
+    out = shard if p <= 1 else _all_gather(shard, groups.world).reshape(-1)
+    if elems is None:
+        elems = shard.numel() * p
+    return out[: int(elems)]

@@ -13,12 +13,18 @@ the machine's topology (node count, lanes per node, link constants), so a
   declares each engine's capabilities, cost model and executable lowering;
   dispatch is a capability-filtered cost tournament;
 * :class:`CommContext` binds a topology to a :class:`CommPolicy` and
-  exposes ``allreduce`` and bucket-scheduled ``sync_grads``.
+  exposes ``allreduce``, ``reduce_scatter`` and ``allgather`` as peer
+  collectives, bucket-scheduled ``sync_grads`` and the sharded
+  ``sync_grads_sharded``.
 
-Only the allreduce family is ported so far (``nap``, ``mla``,
-``mla_pipelined``, ``psum``); the reduce-scatter / allgather engines, the
-baselines (``rd``, ``smp``, ``ring``, ``rabenseifner``) and the
-registration-time verifier and lint wait for later slices.
+The reference's twelve engines are registered under the same names and
+collectives: allreduce ``nap``, ``mla``, ``mla_pipelined``, ``psum`` and
+the baselines ``rd``, ``smp``, ``ring``, ``rabenseifner`` (never
+auto-dispatched); reduce-scatter ``mla_rs`` / ``psum_scatter``; allgather
+``mla_ag`` / ``all_gather``.  :func:`verify_engine` proves an engine's
+schedules with :mod:`repro_torch.analysis.schedule_verifier`.  The
+reference's ``lint_lowering`` (a lint of the JAX lowering) has no port
+yet, nor has its verify-on-register gate.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch.distributed as dist
 
-from . import collectives, perf_model as pm
+from . import collectives, napalg, perf_model as pm
 
 __all__ = [
     "Topology",
@@ -41,6 +47,10 @@ __all__ = [
     "Decision",
     "register_engine",
     "get_engine",
+    "registered_engines",
+    "find_engine",
+    "engine_schedule",
+    "verify_engine",
     "select_engine",
     "CommPolicy",
     "CommContext",
@@ -48,7 +58,7 @@ __all__ = [
 ]
 
 #: the collective families the registry dispatches over
-COLLECTIVES = ("allreduce",)
+COLLECTIVES = ("allreduce", "reduce_scatter", "allgather")
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +226,48 @@ class Topology:
             compute_seconds=compute_seconds, max_buckets=max_buckets,
         )
 
+    # -- schedules / geometry ---------------------------------------------
+
+    def schedule(self, engine: str, *, chunks: int = 1,
+                 elems: int | None = None):
+        """The message schedule a registered engine would execute here."""
+        return engine_schedule(
+            engine, self.n_nodes, self.ppn, chunks=chunks, elems=elems
+        )
+
+    def chunk_splits(self, elems: int, chunks: int) -> tuple[int, ...]:
+        """Ragged pipeline-chunk sizes (the exact executed splits)."""
+        return napalg.ragged_splits(elems, max(1, chunks))
+
+    def chunk_offsets(self, elems: int, chunks: int) -> tuple[int, ...]:
+        return napalg.chunk_offsets(elems, max(1, chunks))
+
+    def stripe_geometry(self, elems: int):
+        """Ragged MLA stripe/block geometry ``(stripes, blocks)``."""
+        return napalg.mla_stripe_geometry(self.n_nodes, self.ppn, elems)
+
+    def internode_lower_bound(
+        self, elems: int, collective: str = "allreduce"
+    ) -> int:
+        """Uneven-block lower bound on per-rank inter-node *elements*: the
+        round trip for allreduce, the one-way halves for reduce_scatter /
+        allgather."""
+        if collective == "allreduce":
+            return napalg.mla_internode_lower_bound(
+                self.n_nodes, self.ppn, elems
+            )
+        if collective == "reduce_scatter":
+            return napalg.rs_internode_lower_bound(
+                self.n_nodes, self.ppn, elems
+            )
+        if collective == "allgather":
+            return napalg.ag_internode_lower_bound(
+                self.n_nodes, self.ppn, elems
+            )
+        raise ValueError(
+            f"unknown collective {collective!r}; one of {COLLECTIVES}"
+        )
+
 
 def _primary_bandwidth_engine(collective: str = "allreduce") -> str:
     """The crossover's large-message contender: the first-registered
@@ -249,23 +301,31 @@ def _crossover_bytes(
 class EngineSpec:
     """One registered collective engine: capabilities + cost + lowering.
 
-    ``execute(x, *, topology, op, pipeline_chunks)`` runs the collective on
-    this rank's tensor; ``cost(s, n, ppn, params)`` prices an ``s``-byte
-    payload.  ``regime``
+    ``execute`` runs the collective on this rank's tensor:
+    ``execute(x, *, topology, op, pipeline_chunks)`` for allreduce,
+    ``(x, *, topology, op)`` for reduce_scatter and
+    ``(x, *, topology, elems)`` for allgather.  ``cost(s, n, ppn, params)``
+    prices an ``s``-byte payload; ``build_schedule`` builds the message
+    schedule the verifier and the simulator replay (``chunked``:
+    ``builder(n, ppn, chunks, elems)``; ``ragged``:
+    ``builder(n, ppn, elems)``; else ``builder(n, ppn)``).  ``regime``
     structures the tournament: ``latency`` wins below the crossover,
     ``bandwidth`` engines fight a cost tournament above it, ``fallback``
-    catches grids nothing else supports, ``baseline`` never auto-dispatches.
+    catches grids nothing else supports, ``baseline`` never
+    auto-dispatches.  ``ops=None``: op-independent (allgather).
     """
 
     name: str
     collective: str
     execute: Callable
     cost: Callable | None = None
+    build_schedule: Callable | None = None
     ops: frozenset[str] | None = frozenset({"sum"})
     regime: str = "baseline"
     min_nodes: int = 1
     min_ppn: int = 1
     chunked: bool = False
+    ragged: bool = False
     pipelined_variant: str | None = None
 
     def supports(self, topology: Topology, op: str) -> bool:
@@ -276,6 +336,20 @@ class EngineSpec:
             topology.n_nodes >= self.min_nodes
             and topology.ppn >= self.min_ppn
         )
+
+    def describe(self) -> dict:
+        """JSON-safe capability row."""
+        return {
+            "name": self.name,
+            "collective": self.collective,
+            "regime": self.regime,
+            "ops": sorted(self.ops) if self.ops is not None else "any",
+            "min_nodes": self.min_nodes,
+            "min_ppn": self.min_ppn,
+            "chunked": self.chunked,
+            "has_cost_model": self.cost is not None,
+            "has_schedule": self.build_schedule is not None,
+        }
 
 
 _REGISTRY: dict[str, dict[str, EngineSpec]] = {c: {} for c in COLLECTIVES}
@@ -288,10 +362,12 @@ def register_engine(
     ops: frozenset[str] | set[str] | None = frozenset({"sum"}),
     execute: Callable,
     cost: Callable | None = None,
+    build_schedule: Callable | None = None,
     regime: str = "baseline",
     min_nodes: int = 1,
     min_ppn: int = 1,
     chunked: bool = False,
+    ragged: bool = False,
     pipelined_variant: str | None = None,
     override: bool = False,
 ) -> EngineSpec:
@@ -310,15 +386,33 @@ def register_engine(
         collective=collective,
         execute=execute,
         cost=cost,
+        build_schedule=build_schedule,
         ops=frozenset(ops) if ops is not None else None,
         regime=regime,
         min_nodes=min_nodes,
         min_ppn=min_ppn,
         chunked=chunked,
+        ragged=ragged,
         pipelined_variant=pipelined_variant,
     )
     _REGISTRY[collective][name] = spec
     return spec
+
+
+def registered_engines(
+    collective: str | None = None,
+) -> dict[str, EngineSpec]:
+    """The registry (one collective family, or all of them flattened as
+    ``"collective:name"``)."""
+    if collective is not None:
+        if collective not in _REGISTRY:
+            raise ValueError(
+                f"unknown collective {collective!r}; one of {COLLECTIVES}"
+            )
+        return dict(_REGISTRY[collective])
+    return {
+        f"{c}:{n}": s for c, tab in _REGISTRY.items() for n, s in tab.items()
+    }
 
 
 def get_engine(name: str, collective: str = "allreduce") -> EngineSpec:
@@ -331,6 +425,89 @@ def get_engine(name: str, collective: str = "allreduce") -> EngineSpec:
             f"{sorted(table)} (or 'auto' for the model-driven dispatch)"
         )
     return spec
+
+
+def find_engine(name: str) -> EngineSpec:
+    """Resolve an engine by name across all collective families."""
+    for table in _REGISTRY.values():
+        if name in table:
+            return table[name]
+    raise ValueError(
+        f"unknown engine {name!r}; registered: "
+        f"{sorted(registered_engines())}"
+    )
+
+
+def engine_schedule(
+    name: str,
+    n_nodes: int,
+    ppn: int,
+    *,
+    chunks: int = 1,
+    elems: int | None = None,
+):
+    """The message schedule a registered engine executes on an
+    ``(n_nodes, ppn)`` grid, built by the calling convention its flags
+    declare."""
+    spec = find_engine(name)
+    if spec.build_schedule is None:
+        raise ValueError(f"engine {spec.name!r} has no schedule builder")
+    if spec.chunked:
+        return spec.build_schedule(n_nodes, ppn, max(1, chunks), elems)
+    if spec.ragged:
+        return spec.build_schedule(n_nodes, ppn, elems)
+    return spec.build_schedule(n_nodes, ppn)
+
+
+def verify_engine(
+    name: str,
+    topology: Topology | None = None,
+    *,
+    n_nodes: int | None = None,
+    ppn: int | None = None,
+    elems: int | None = None,
+    chunks: int = 1,
+    grids=None,
+    raise_on_violation: bool = True,
+):
+    """Statically verify a registered engine's schedules with the four
+    passes of :mod:`repro_torch.analysis.schedule_verifier` (match
+    completeness, deadlock-freedom, exactly-once reduction, byte
+    accounting) over one grid (``topology`` or ``n_nodes`` / ``ppn``) or a
+    grid list (``grids``; default the registration grids).  Returns the
+    reports; raises ``ValueError`` listing every violation unless
+    ``raise_on_violation=False``."""
+    from ..analysis import schedule_verifier as _sv
+
+    spec = find_engine(name)
+    if topology is not None:
+        grid_list = [(topology.n_nodes, topology.ppn)]
+    elif n_nodes is not None and ppn is not None:
+        grid_list = [(n_nodes, ppn)]
+    elif grids is not None:
+        grid_list = list(grids)
+    else:
+        grid_list = list(_sv.REGISTER_GRIDS)
+    reports = [
+        _sv.verify_spec(
+            spec, n, p, elems=elems,
+            chunks=chunks if chunks > 1 else (2 if spec.chunked else 1),
+        )
+        for n, p in grid_list
+    ]
+    bad = [r for r in reports if not r.ok]
+    if bad and raise_on_violation:
+        lines = [
+            f"  ({r.n_nodes}x{r.ppn}, elems={r.elems}) "
+            f"[{v.rule}] {v.message}"
+            for r in bad
+            for v in r.violations
+        ]
+        raise ValueError(
+            f"engine {name!r} failed static verification:\n"
+            + "\n".join(lines)
+        )
+    return reports
 
 
 class Decision(NamedTuple):
@@ -428,21 +605,69 @@ def _cost_mla_pipelined_opt(s, n, ppn, p):
 
 register_engine(
     "nap", ops=collectives.ALL_OPS, regime="latency", min_nodes=2, min_ppn=2,
-    cost=pm.cost_nap, execute=collectives.nap_allreduce,
+    cost=pm.cost_nap, build_schedule=napalg.build_nap_schedule,
+    execute=collectives.nap_allreduce,
 )
 register_engine(
     "mla", ops=collectives.MLA_OPS, regime="bandwidth", min_nodes=2,
-    cost=pm.cost_mla, execute=collectives.mla_allreduce,
-    pipelined_variant="mla_pipelined",
+    cost=pm.cost_mla, build_schedule=napalg.build_mla_schedule, ragged=True,
+    execute=collectives.mla_allreduce, pipelined_variant="mla_pipelined",
 )
 register_engine(
     "mla_pipelined", ops=collectives.MLA_OPS, regime="bandwidth",
-    min_nodes=2, min_ppn=2, cost=_cost_mla_pipelined_opt, chunked=True,
+    min_nodes=2, min_ppn=2, cost=_cost_mla_pipelined_opt,
+    build_schedule=napalg.build_mla_pipelined_schedule, chunked=True,
     execute=collectives.mla_pipelined_allreduce,
 )
 register_engine(
     "psum", ops=collectives.ALL_OPS, regime="fallback", cost=pm.cost_psum,
     execute=collectives.psum_allreduce,
+)
+register_engine(
+    "rd", ops=collectives.ALL_OPS, regime="baseline", cost=pm.cost_rd,
+    build_schedule=napalg.build_rd_schedule, execute=collectives.rd_allreduce,
+)
+register_engine(
+    "smp", ops=collectives.ALL_OPS, regime="baseline", cost=pm.cost_smp,
+    build_schedule=napalg.build_smp_schedule,
+    execute=collectives.smp_allreduce,
+)
+register_engine(
+    "ring", ops=collectives.MLA_OPS, regime="baseline",
+    execute=collectives.ring_allreduce,
+)
+register_engine(
+    "rabenseifner", ops=collectives.MLA_OPS, regime="baseline",
+    execute=collectives.rabenseifner_allreduce,
+)
+
+
+def _exec_flat_rs(x, *, topology, op="sum"):
+    return collectives.flat_reduce_scatter(
+        x, topology=topology, op=op, f32_accum=topology.n_nodes > 1,
+    )
+
+
+register_engine(
+    "mla_rs", collective="reduce_scatter", ops=collectives.MLA_OPS,
+    regime="bandwidth", min_nodes=2, cost=pm.cost_reduce_scatter,
+    build_schedule=napalg.build_mla_rs_schedule, ragged=True,
+    execute=collectives.mla_reduce_scatter,
+)
+register_engine(
+    "psum_scatter", collective="reduce_scatter", ops=collectives.MLA_OPS,
+    regime="fallback", cost=pm.cost_reduce_scatter_flat,
+    execute=_exec_flat_rs,
+)
+register_engine(
+    "mla_ag", collective="allgather", ops=None, regime="bandwidth",
+    min_nodes=2, cost=pm.cost_allgather,
+    build_schedule=napalg.build_mla_ag_schedule, ragged=True,
+    execute=collectives.mla_allgather,
+)
+register_engine(
+    "all_gather", collective="allgather", ops=None, regime="fallback",
+    cost=pm.cost_allgather_flat, execute=collectives.flat_allgather,
 )
 
 
@@ -522,18 +747,22 @@ class CommContext:
         nbytes: int,
         op: str = "sum",
         *,
+        collective: str = "allreduce",
         algorithm: str | None = None,
         pipeline_chunks: int | None = None,
     ) -> Decision:
-        """The (engine, chunks) decision for an ``nbytes`` payload."""
-        algo = algorithm if algorithm is not None else self.policy.algorithm
+        """The (engine, chunks) decision for an ``nbytes`` payload (the
+        policy's ``algorithm`` pins allreduce only)."""
+        algo = algorithm if algorithm is not None else (
+            self.policy.algorithm if collective == "allreduce" else "auto"
+        )
         pin = (
             pipeline_chunks
             if pipeline_chunks is not None
             else self.policy.pipeline_chunks
         )
         if algo != "auto":
-            spec = get_engine(algo)
+            spec = get_engine(algo, collective)
             if spec.chunked:
                 chunks = (
                     max(1, int(pin))
@@ -548,9 +777,27 @@ class CommContext:
             self.topology,
             nbytes,
             op,
+            collective=collective,
             small_threshold_bytes=self.policy.small_threshold_bytes,
             pipeline_chunks=pin,
         )
+
+    def _engine_for(
+        self, decision: Decision, op: str, collective: str
+    ) -> EngineSpec:
+        spec = get_engine(decision.engine, collective)
+        if spec.ops is not None and op not in spec.ops:
+            supporting = sorted(
+                s.name
+                for s in _REGISTRY[collective].values()
+                if s.ops is None or op in s.ops
+            )
+            raise NotImplementedError(
+                f"{collective} engine {spec.name!r} supports "
+                f"{sorted(spec.ops)}, got op={op!r}; engines supporting "
+                f"it: {supporting}"
+            )
+        return spec
 
     def allreduce(
         self,
@@ -566,15 +813,41 @@ class CommContext:
         d = self.dispatch(
             nbytes, op, algorithm=algorithm, pipeline_chunks=pipeline_chunks
         )
-        spec = get_engine(d.engine)
-        if spec.ops is not None and op not in spec.ops:
-            raise NotImplementedError(
-                f"allreduce engine {spec.name!r} supports "
-                f"{sorted(spec.ops)}, got op={op!r}"
-            )
+        spec = self._engine_for(d, op, "allreduce")
         return spec.execute(
             x, topology=self.topology, op=op, pipeline_chunks=d.chunks
         )
+
+    def reduce_scatter(self, x, op: str = "sum", *,
+                       algorithm: str | None = None):
+        """Striped reduce-scatter of the flattened ``x``: rank
+        ``(node j, lane r)`` returns the reduced block ``(r, j)`` of the
+        MLA stripe layout, padded to the uniform size
+        ``ceil(ceil(s/ppn)/n)``."""
+        self.topology.require_groups()
+        nbytes = int(np.prod(tuple(x.shape))) * x.element_size()
+        d = self.dispatch(
+            nbytes, op, collective="reduce_scatter", algorithm=algorithm
+        )
+        spec = self._engine_for(d, op, "reduce_scatter")
+        return spec.execute(x, topology=self.topology, op=op)
+
+    def allgather(self, x, *, elems: int | None = None,
+                  algorithm: str | None = None):
+        """Inverse of :meth:`reduce_scatter`: the full flat payload from
+        every rank's block.  ``elems`` is the original size (default
+        ``x.numel() * group``, no padding)."""
+        self.topology.require_groups()
+        total = int(
+            elems if elems is not None
+            else int(np.prod(tuple(x.shape))) * self.topology.group
+        )
+        d = self.dispatch(
+            total * x.element_size(), "sum", collective="allgather",
+            algorithm=algorithm,
+        )
+        spec = self._engine_for(d, "sum", "allgather")
+        return spec.execute(x, topology=self.topology, elems=total)
 
     def sync_grads(self, grads, *, plan=None, ef_state=None):
         """Bucket-scheduled gradient allreduce of a tree of tensors (see
@@ -585,6 +858,14 @@ class CommContext:
         return grad_sync.sync_with_context(
             grads, self, plan=plan, ef_state=ef_state
         )
+
+    def sync_grads_sharded(self, grads):
+        """Sharded sync: reduce-scatter each leaf and return the tree of
+        this rank's 1-D shards (see
+        :func:`repro_torch.core.grad_sync.sync_grads_sharded`)."""
+        from . import grad_sync
+
+        return grad_sync.sync_grads_sharded(grads, ctx=self)
 
     def plan(self, tree):
         """Host-side bucket plan for a gradient tree under this context."""

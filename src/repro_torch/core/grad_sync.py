@@ -25,8 +25,13 @@ bucket.
 syncs ``g + r`` and every rank keeps, as its new residual, its exact share
 of the rounding error measured at the two compression points.
 
-The sharded route (``sync_grads_sharded`` / ``unshard_grads``) waits for
-the next slice.
+The sharded route (:func:`sync_grads_sharded`): every leaf is
+reduce-scattered instead of allreduced and each rank keeps its 1-D shard,
+``ceil(ceil(e/ppn)/n)`` elements in the MLA stripe-block layout, at half
+the allreduce's inter-node bytes; :func:`unshard_grads` allgathers back.
+With ``compress_bits``, float leaves ride the packed transport's RS half
+(:func:`_compressed_reduce_scatter`) after one fused max-allreduce agrees
+every leaf's scale.
 """
 
 from __future__ import annotations
@@ -37,11 +42,18 @@ from typing import Any
 import torch
 
 from . import bucketing, comm
-from .collectives import _all_gather, _all_reduce, _all_to_all, _reduce_scatter
+from .collectives import (
+    _all_gather, _all_reduce, _all_to_all, _reduce_scatter, nap_allreduce,
+)
 from .. import tree as tree_util
 from ..kernels import transport
 
-__all__ = ["sync_with_context", "plan_for_tree"]
+__all__ = [
+    "sync_with_context",
+    "sync_grads_sharded",
+    "unshard_grads",
+    "plan_for_tree",
+]
 
 
 def _div(x: torch.Tensor, s: float) -> torch.Tensor:
@@ -378,3 +390,133 @@ def sync_with_context(
     if ef_state is None:
         return synced
     return synced, tree_util.unflatten(ef_def, new_ef)
+
+
+# ---------------------------------------------------------------------------
+# sharded route
+# ---------------------------------------------------------------------------
+
+
+def _agreed_absmax(parts, ctx: comm.CommContext) -> torch.Tensor:
+    """Per-part max-abs values agreed over the whole grid in ONE fused
+    max-allreduce of an (L,) float32 vector: NAP where the grid has nodes
+    of two or more lanes, the native allreduce otherwise (the reference
+    calls NAP on single-lane grids too, where its schedule builder raises:
+    NAP needs two lanes)."""
+    topo = ctx.topology
+    groups = topo.require_groups()
+    absmax = torch.stack(
+        [p.abs().amax().to(torch.float32) for p in parts]
+    )
+    if topo.n_nodes > 1 and topo.ppn > 1:
+        return nap_allreduce(absmax, topology=topo, op="max")
+    return _all_reduce(absmax, groups.world, "max")
+
+
+def _compressed_reduce_scatter(flat, scale, ctx: comm.CommContext):
+    """RS half of the packed transport for one f32 leaf: exact f32 intra
+    reduce-scatter, one quantize-pack of the (n, B) stripe
+    (``row_stride=B``, ``base = lane * S``), the packed inter-node
+    ``all_to_all`` of uint8 / int8 wire rows, one unpack-dequantize of
+    the n received copies of this rank's block (``row_stride=0``,
+    ``cols=B``) and an f32 fold.  Returns this rank's f32 shard of the
+    *sum*, ``ceil(ceil(e/ppn)/n)`` elements of the MLA stripe-block
+    layout.  ``scale`` is agreed over the grid before the scatter; the
+    stripe is a sum of ``ppn`` ranks, so hop 1 quantizes at ``ppn``
+    times it.  With one node there is no wire: the stripe is returned
+    before the kernels."""
+    bits = ctx.policy.compress_bits
+    impl = ctx.policy.transport_impl
+    topo = ctx.topology
+    groups = topo.require_groups()
+    n, ppn = topo.n_nodes, topo.ppn
+    scales = scale.reshape(1)
+    offsets = (0,)
+    e = int(flat.numel())
+    S = -(-e // ppn)
+    if ppn > 1:
+        if ppn * S != e:
+            flat = torch.cat([flat, flat.new_zeros(ppn * S - e)])
+        stripe = _reduce_scatter(flat.reshape(ppn, S), groups.intra)
+        base = groups.intra.index * S
+        s1 = scales * float(ppn)
+    else:
+        stripe = flat
+        base = 0
+        s1 = scales
+    if n <= 1:
+        return stripe
+    B = -(-S // n)
+    if n * B != S:
+        stripe = torch.cat([stripe, stripe.new_zeros(n * B - S)])
+    w = transport.quantize_pack(
+        stripe.reshape(n, B), s1, offsets=offsets, bits=bits, base=base,
+        row_stride=B, impl=impl,
+    )
+    recv = _all_to_all(w, groups.inter)
+    block_base = base + groups.inter.index * B
+    return transport.unpack_dequantize(
+        recv, s1, offsets=offsets, bits=bits, cols=B, base=block_base,
+        row_stride=0, impl=impl,
+    ).sum(dim=0)
+
+
+def sync_grads_sharded(grads: Any, *, ctx: comm.CommContext) -> Any:
+    """Sharded gradient sync: every leaf is reduce-scattered (dispatched
+    by :meth:`comm.CommContext.reduce_scatter`) and this rank keeps its
+    1-D shard of the reduced, optionally averaged, gradient: leaf ``i``
+    gives ``ceil(ceil(e_i/ppn)/n)`` elements.  :func:`unshard_grads`
+    inverts.
+
+    With ``compress_bits``, float leaves take
+    :func:`_compressed_reduce_scatter`, their scales agreed in one fused
+    max-allreduce first (:func:`_agreed_absmax`); integer leaves stay
+    exact.  The mean of an integer leaf is ``round(sum / group)``, half to
+    even."""
+    ctx.topology.require_groups()
+    group = ctx.topology.group
+    leaves, treedef = tree_util.flatten(grads)
+    bits = ctx.policy.compress_bits
+    compressed = [
+        i for i, g in enumerate(leaves)
+        if bits and g.dtype.is_floating_point
+    ]
+    scales = {}
+    if compressed and group > 1:
+        qmax = float(2 ** (bits - 1) - 1)
+        agreed = _agreed_absmax(
+            [leaves[i].reshape(-1) for i in compressed], ctx
+        )
+        scales = {
+            i: torch.clamp_min(_div(agreed[k], qmax), 1e-30)
+            for k, i in enumerate(compressed)
+        }
+    out = []
+    for i, g in enumerate(leaves):
+        dtype = g.dtype
+        if i in scales:
+            red = _compressed_reduce_scatter(
+                g.reshape(-1).to(torch.float32), scales[i], ctx
+            )
+        else:
+            red = ctx.reduce_scatter(g.reshape(-1), op="sum")
+        if ctx.policy.mean and group > 1:
+            if dtype.is_floating_point:
+                red = _div(red, float(group))
+            else:
+                red = torch.round(_div(red.to(torch.float32), float(group)))
+        out.append(red.to(dtype))
+    return tree_util.unflatten(treedef, out)
+
+
+def unshard_grads(shards: Any, like: Any, *, ctx: comm.CommContext) -> Any:
+    """Allgather a :func:`sync_grads_sharded` result back to full leaves.
+    ``like`` is a tree of tensors (``meta`` ones will do) giving the
+    original leaf shapes and types."""
+    shard_leaves, treedef = tree_util.flatten(shards)
+    like_leaves = tree_util.leaves(like)
+    out = []
+    for s, g in zip(shard_leaves, like_leaves):
+        full = ctx.allgather(s, elems=int(g.numel()))
+        out.append(full.reshape(g.shape).to(g.dtype))
+    return tree_util.unflatten(treedef, out)

@@ -15,12 +15,23 @@ over a logical grid of ``n_nodes`` nodes with ``ppn`` ranks each.
   bandwidth-regime multi-lane engine (striped RS+AG over ``ppn`` lanes,
   optionally split into ``C`` ragged pipeline chunks), with ragged
   per-pair byte fractions from :func:`mla_stripe_geometry`.
+* :func:`build_mla_rs_schedule` / :func:`build_mla_ag_schedule` — the
+  striped reduce-scatter (the first two MLA phases) and allgather (the
+  last two), whose per-rank inter-node bytes equal the one-way lower
+  bounds.
+* :func:`build_rd_schedule` / :func:`build_smp_schedule` — the paper's
+  baselines: node-agnostic recursive doubling (§II, Fig. 3) and MPICH's
+  SMP master-process allreduce (§II.A, Fig. 4), with the MPICH fold for
+  non-power-of-two counts.
+* :func:`iter_messages` — every message of any schedule in one normal
+  form (:class:`ScheduleMessage`), the schedule verifier's input;
+  :func:`p2p_recv_masks` / :func:`step_mask_tables` — the host-constant
+  receive masks the engines execute; :func:`message_counts` — NAP's
+  inter-node message statistics.
 * :func:`simulate_allreduce` / :func:`simulate_mla_allreduce` — NumPy
   interpreters of the schedules, the tests' oracles.
 
-The RD / SMP baselines and the standalone RS / AG schedules are not
-ported yet.  Rank numbering is SMP-style (paper §III):
-``rank = node * ppn + lane``.
+Rank numbering is SMP-style (paper §III): ``rank = node * ppn + lane``.
 """
 
 from __future__ import annotations
@@ -37,8 +48,14 @@ __all__ = [
     "NapSchedule",
     "P2PStep",
     "P2PSchedule",
+    "ScheduleMessage",
+    "iter_messages",
     "build_nap_schedule",
+    "build_rd_schedule",
+    "build_smp_schedule",
     "build_mla_schedule",
+    "build_mla_rs_schedule",
+    "build_mla_ag_schedule",
     "build_mla_pipelined_schedule",
     "ragged_splits",
     "chunk_offsets",
@@ -48,8 +65,10 @@ __all__ = [
     "rs_internode_lower_bound",
     "ag_internode_lower_bound",
     "step_mask_tables",
+    "p2p_recv_masks",
     "simulate_allreduce",
     "simulate_mla_allreduce",
+    "message_counts",
     "nap_num_steps",
 ]
 
@@ -368,6 +387,146 @@ class P2PSchedule:
         return float(sends.max(initial=0.0))
 
 
+@dataclass(frozen=True)
+class ScheduleMessage:
+    """One send/recv endpoint pair of any schedule, in a uniform shape.
+
+    The normal form the static analyses (:mod:`repro_torch.analysis`) iterate:
+    NAP steps flatten their donor rounds into ``(step, round)`` positions
+    with ``frac=1.0`` (every NAP message carries the full payload);
+    P2P steps broadcast their scalar/ragged fractions per pair.  ``inter``
+    is the slow-domain flag (``src`` and ``dst`` live on different
+    nodes), derived once here so every consumer shares one definition.
+    """
+
+    step: int
+    round: int
+    src: int
+    dst: int
+    frac: float
+    chunk: int
+    combine: bool
+    inter: bool
+
+
+def iter_messages(schedule):
+    """Yield every message of a :class:`NapSchedule` or
+    :class:`P2PSchedule` as a :class:`ScheduleMessage`.
+
+    The single endpoint-iteration point for schedule-shape consumers
+    that must not trust the schedules' own accounting helpers (the
+    verifier recomputes byte totals from these records and *checks* the
+    helpers against them).
+    """
+    ppn = schedule.ppn
+    if isinstance(schedule, NapSchedule):
+        for i, step in enumerate(schedule.steps):
+            for rnd_idx, rnd in enumerate(step.rounds):
+                for src, dst in rnd:
+                    yield ScheduleMessage(
+                        step=i, round=rnd_idx, src=src, dst=dst,
+                        frac=1.0, chunk=0, combine=True,
+                        inter=src // ppn != dst // ppn,
+                    )
+        return
+    for i, step in enumerate(schedule.steps):
+        for (src, dst), frac in zip(step.pairs, step.pair_fracs()):
+            yield ScheduleMessage(
+                step=i, round=0, src=src, dst=dst, frac=float(frac),
+                chunk=step.chunk, combine=step.combine,
+                inter=src // ppn != dst // ppn,
+            )
+
+
+@functools.lru_cache(maxsize=None)
+def build_rd_schedule(n_nodes: int, ppn: int) -> P2PSchedule:
+    """Node-agnostic recursive doubling over all p = n*ppn chips.
+
+    Non-power-of-two counts use the standard MPICH fold: the first
+    ``2*rem`` chips pre-combine into ``rem`` survivors, a power-of-two core
+    runs the butterfly, and results are returned to the folded chips.
+    """
+    p = n_nodes * ppn
+    steps: list[P2PStep] = []
+    pow2 = 1 << (p.bit_length() - 1)
+    rem = p - pow2
+    # fold: odd chips of the first 2*rem send to their even neighbour
+    if rem:
+        steps.append(
+            P2PStep(tuple((2 * i + 1, 2 * i) for i in range(rem)))
+        )
+    core = [2 * i for i in range(rem)] + list(range(2 * rem, p))
+    for bit in range(int(math.log2(pow2)) if pow2 > 1 else 0):
+        pairs = []
+        for idx, chip in enumerate(core):
+            partner = core[idx ^ (1 << bit)]
+            pairs.append((chip, partner))
+        steps.append(P2PStep(tuple(pairs)))
+    if rem:
+        steps.append(
+            P2PStep(
+                tuple((2 * i, 2 * i + 1) for i in range(rem)), combine=False
+            )
+        )
+    return P2PSchedule(n_nodes, ppn, tuple(steps), kind="rd")
+
+
+@functools.lru_cache(maxsize=None)
+def build_smp_schedule(n_nodes: int, ppn: int) -> P2PSchedule:
+    """MPICH SMP allreduce: local tree reduce -> RD among masters -> bcast."""
+    steps: list[P2PStep] = []
+
+    # intra-node binomial-tree reduction to local rank 0
+    span = 1
+    while span < ppn:
+        pairs = []
+        for node in range(n_nodes):
+            base = node * ppn
+            for r in range(0, ppn, 2 * span):
+                if r + span < ppn:
+                    pairs.append((base + r + span, base + r))
+        if pairs:
+            steps.append(P2PStep(tuple(pairs)))
+        span *= 2
+    # recursive doubling among masters (chip = node*ppn)
+    masters = [node * ppn for node in range(n_nodes)]
+    pow2 = 1 << (n_nodes.bit_length() - 1)
+    rem = n_nodes - pow2
+    if rem:
+        steps.append(
+            P2PStep(tuple((masters[2 * i + 1], masters[2 * i]) for i in range(rem)))
+        )
+    core = [masters[2 * i] for i in range(rem)] + masters[2 * rem :]
+    for bit in range(int(math.log2(pow2)) if pow2 > 1 else 0):
+        pairs = []
+        for idx, chip in enumerate(core):
+            partner = core[idx ^ (1 << bit)]
+            pairs.append((chip, partner))
+        steps.append(P2PStep(tuple(pairs)))
+    if rem:
+        steps.append(
+            P2PStep(
+                tuple((masters[2 * i], masters[2 * i + 1]) for i in range(rem)),
+                combine=False,
+            )
+        )
+    # intra-node binomial-tree broadcast from rank 0
+    span = 1 << max(0, (ppn - 1).bit_length() - 1)
+    bcast_steps = []
+    while span >= 1:
+        pairs = []
+        for node in range(n_nodes):
+            base = node * ppn
+            for r in range(0, ppn, 2 * span):
+                if r + span < ppn:
+                    pairs.append((base + r, base + r + span))
+        if pairs:
+            bcast_steps.append(P2PStep(tuple(pairs), combine=False))
+        span //= 2
+    steps.extend(bcast_steps)
+    return P2PSchedule(n_nodes, ppn, tuple(steps), kind="smp")
+
+
 def ragged_splits(total: int, k: int) -> tuple[int, ...]:
     """Split ``total`` items into ``k`` blocks with sizes differing <= 1.
 
@@ -653,6 +812,47 @@ def build_mla_schedule(
 
 
 @functools.lru_cache(maxsize=None)
+def build_mla_rs_schedule(
+    n_nodes: int, ppn: int, elems: int | None = None
+) -> P2PSchedule:
+    """Striped *reduce-scatter* schedule: the first two MLA phases.
+
+    Intra-pod reduce-scatter stripes the pod partial across the ``ppn``
+    lanes, then every lane runs an independent reduce-scatter over the
+    slow domain — chip ``(j, r)`` ends up owning the fully reduced block
+    ``(r, j)`` of :func:`mla_stripe_geometry`.  With ``elems`` the
+    per-pair fractions are ragged, so
+    ``max_internode_bytes_per_chip`` equals the one-way lower bound
+    (:func:`rs_internode_lower_bound`) — half the allreduce's round trip.
+    """
+    if n_nodes < 1 or ppn < 1:
+        raise ValueError("n_nodes and ppn must be positive")
+    intra_rs, inter_rs, _, _ = _mla_phase_steps(n_nodes, ppn, elems, 1.0, 0)
+    return P2PSchedule(
+        n_nodes, ppn, tuple(intra_rs + inter_rs), kind="mla_rs"
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def build_mla_ag_schedule(
+    n_nodes: int, ppn: int, elems: int | None = None
+) -> P2PSchedule:
+    """Striped *allgather* schedule: the last two MLA phases.
+
+    The exact mirror of :func:`build_mla_rs_schedule`: every lane
+    allgathers its blocks over the slow domain, then an intra-pod
+    allgather rebuilds the payload — per-chip inter-node bytes equal the
+    one-way lower bound (:func:`ag_internode_lower_bound`).
+    """
+    if n_nodes < 1 or ppn < 1:
+        raise ValueError("n_nodes and ppn must be positive")
+    _, _, inter_ag, intra_ag = _mla_phase_steps(n_nodes, ppn, elems, 1.0, 0)
+    return P2PSchedule(
+        n_nodes, ppn, tuple(inter_ag + intra_ag), kind="mla_ag"
+    )
+
+
+@functools.lru_cache(maxsize=None)
 def build_mla_pipelined_schedule(
     n_nodes: int, ppn: int, chunks: int, elems: int | None = None
 ) -> P2PSchedule:
@@ -741,6 +941,19 @@ def step_mask_tables(
         smask.setflags(write=False)
         tables.append((tuple(rmasks), smask))
     return tuple(tables)
+
+
+@functools.lru_cache(maxsize=None)
+def p2p_recv_masks(sched: P2PSchedule) -> tuple[np.ndarray, ...]:
+    """Per-step receive masks for a P2P schedule (host constants)."""
+    out = []
+    for step in sched.steps:
+        m = np.zeros(sched.n_chips, dtype=bool)
+        for _, dst in step.pairs:
+            m[dst] = True
+        m.setflags(write=False)
+        out.append(m)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -851,3 +1064,19 @@ def simulate_mla_allreduce(
             s_off += sr
         c_off += ce
     return np.broadcast_to(result, v.shape).copy()
+
+
+def message_counts(schedule: NapSchedule) -> dict[str, int]:
+    """Inter-node message statistics for comparisons/figures."""
+    per_chip = np.zeros(schedule.n_chips, dtype=np.int64)
+    total = 0
+    for step in schedule.steps:
+        for src, dst in step.messages:
+            if src // schedule.ppn != dst // schedule.ppn:
+                per_chip[src] += 1
+                total += 1
+    return {
+        "steps": schedule.num_internode_steps,
+        "max_per_chip": int(per_chip.max(initial=0)),
+        "total": total,
+    }

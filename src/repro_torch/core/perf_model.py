@@ -1,10 +1,12 @@
 """Node-aware performance model — paper §IV, Equations (1)-(6).
 
-The port of what the dispatcher and the bucket planner of
-``repro/core/perf_model.py`` reach: the max-rate message cost (Eq 3), the
-NAP (Eq 6), recursive-doubling (Eq 4, the ``psum`` fallback's price), MLA
-and pipelined-MLA costs, the NAP<->MLA crossover, the model-optimal
-pipeline depth and the model-optimal grad-sync bucket size.
+The port of ``repro/core/perf_model.py``: the postal model (Eq 1), the
+max-rate message cost (Eq 3), recursive doubling (Eq 4, also the ``psum``
+fallback's price), SMP (Eq 5), NAP (Eq 6), the MLA, compressed-MLA and
+pipelined-MLA costs, the striped and flat reduce-scatter / allgather
+costs, the NAP<->MLA crossover, the model-optimal pipeline depth and the
+model-optimal grad-sync bucket size.  (``MachineParams.fit``, which fits
+the constants to measured message times, is not ported.)
 
 The machine constants are the JAX package's own (:data:`TPU_V5E_POD` is
 its default, :data:`BLUE_WATERS` the paper's), kept so that the port plans
@@ -23,12 +25,19 @@ __all__ = [
     "MachineParams",
     "BLUE_WATERS",
     "TPU_V5E_POD",
+    "postal_cost",
     "maxrate_message_cost",
     "cost_rd",
+    "cost_smp",
     "cost_nap",
     "cost_mla",
+    "cost_mla_compressed",
     "cost_mla_pipelined",
     "cost_psum",
+    "cost_reduce_scatter",
+    "cost_allgather",
+    "cost_reduce_scatter_flat",
+    "cost_allgather_flat",
     "optimal_pipeline_chunks",
     "crossover_bytes",
     "dispatched_allreduce_cost",
@@ -88,6 +97,10 @@ def _log_ppn(n: int, ppn: int) -> int:
     return max(1, math.ceil(math.log(n) / math.log(ppn) - 1e-12))
 
 
+def postal_cost(t: float, s: float, c: float, p: MachineParams) -> float:
+    """Eq 1: T = alpha t + beta s + gamma c (node-agnostic postal model)."""
+    return p.alpha * t + s / p.R_b + p.gamma * c
+
 
 def maxrate_message_cost(
     s: float, p: MachineParams, active_per_node: int = 1
@@ -107,6 +120,13 @@ def cost_rd(s: float, n: int, ppn: int, p: MachineParams) -> float:
     comp = p.gamma * s * _log2(n * ppn)
     return intra + inter + comp
 
+
+def cost_smp(s: float, n: int, ppn: int, p: MachineParams) -> float:
+    """Eq 5: SMP/master algorithm. One active chip per node: full R_b."""
+    intra = (p.alpha_l + p.beta_l * s) * _log2(ppn)
+    inter = (p.alpha + s / p.R_b) * _log2(n)
+    comp = p.gamma * s * _log2(n * ppn)
+    return intra + inter + comp
 
 
 def cost_nap(s: float, n: int, ppn: int, p: MachineParams) -> float:
@@ -132,6 +152,28 @@ def cost_mla(s: float, n: int, ppn: int, p: MachineParams) -> float:
     """
     t_rs, t_inter, t_ag = _mla_stage_times(s, n, ppn, p)
     comp = p.gamma * s * 2.0  # local stripe reduce + per-lane RS folds
+    return t_rs + t_inter + t_ag + comp
+
+
+def cost_mla_compressed(
+    s: float, n: int, ppn: int, p: MachineParams, wire_ratio: float
+) -> float:
+    """Quantised two-level transport cost (the fused-kernel engine in
+    :mod:`repro.core.grad_sync`) for a raw ``s``-byte payload.
+
+    The intra-node pre-combine and rebuild stay exact f32 — they pay the
+    raw width — while the inter-node exchange (the RS-half all_to_all
+    and the AG-half all_gather) moves ``s * wire_ratio`` bytes
+    (``wire_ratio`` = packed wire itemsize / raw itemsize: 1/4 for int8
+    over f32, 1/8 for packed int4).  The compute port pays four fused
+    kernel passes over the payload (quantize-pack, unpack+fold,
+    requantize, unpack) instead of :func:`cost_mla`'s two reduce
+    streams.  This is the cost the dispatcher/planner quote for
+    compressed buckets — the same packed widths the executor moves.
+    """
+    t_rs, _, t_ag = _mla_stage_times(s, n, ppn, p)
+    _, t_inter, _ = _mla_stage_times(s * wire_ratio, n, ppn, p)
+    comp = p.gamma * s * 4.0
     return t_rs + t_inter + t_ag + comp
 
 
@@ -221,6 +263,66 @@ def cost_psum(s: float, n: int, ppn: int, p: MachineParams) -> float:
     return cost_rd(s, n, ppn, p)
 
 
+def _striped_one_way_cost(
+    s: float, n: int, ppn: int, p: MachineParams
+) -> float:
+    """Shared transport term of one striped RS *or* AG direction: intra
+    stripe phase + per-lane inter phase (all ``ppn`` lanes inject at
+    once).  The single source both directions price from — RS adds the
+    fold pass on top."""
+    lanes = max(1, ppn)
+    li = math.ceil(_log2(ppn)) if ppn > 1 else 0
+    t_intra = li * p.alpha_l + p.beta_l * s * (lanes - 1) / lanes
+    if n > 1:
+        lo = math.ceil(_log2(n))
+        lane_bytes = (s / lanes) * (n - 1) / n
+        rate = min(p.R_b, p.R_N / lanes)
+        t_inter = lo * p.alpha + lane_bytes / rate
+    else:
+        t_inter = 0.0
+    return t_intra + t_inter
+
+
+def cost_reduce_scatter(s: float, n: int, ppn: int, p: MachineParams) -> float:
+    """Node-aware striped reduce-scatter (the RS half of the MLA
+    allreduce): intra stripe + per-lane inter RS, one fold pass."""
+    return _striped_one_way_cost(s, n, ppn, p) + p.gamma * s
+
+
+def cost_allgather(s: float, n: int, ppn: int, p: MachineParams) -> float:
+    """Node-aware striped allgather (the AG half of the MLA allreduce):
+    per-lane inter AG + intra AG, no reduction work."""
+    return _striped_one_way_cost(s, n, ppn, p)
+
+
+def _flat_one_way_cost(s: float, n: int, ppn: int, p: MachineParams) -> float:
+    """Shared transport term of one flat (node-agnostic) RS or AG
+    direction over all ``n*ppn`` chips: every chip's ``s*(p-1)/p`` bytes
+    cross the slow domain injection-limited whenever ``n > 1``."""
+    chips = max(1, n * ppn)
+    steps = math.ceil(_log2(chips))
+    bytes_moved = s * (chips - 1) / chips
+    if n > 1:
+        rate = min(p.R_b, p.R_N / max(1, ppn))
+        return steps * p.alpha + bytes_moved / rate
+    return steps * p.alpha_l + p.beta_l * bytes_moved
+
+
+def cost_reduce_scatter_flat(
+    s: float, n: int, ppn: int, p: MachineParams
+) -> float:
+    """Node-agnostic flat reduce-scatter — the baseline the striped
+    engine beats whenever ``n > 1``."""
+    return _flat_one_way_cost(s, n, ppn, p) + p.gamma * s
+
+
+def cost_allgather_flat(
+    s: float, n: int, ppn: int, p: MachineParams
+) -> float:
+    """Node-agnostic flat allgather — mirror of
+    :func:`cost_reduce_scatter_flat` without the fold pass."""
+    return _flat_one_way_cost(s, n, ppn, p)
+
 
 # The engine registry (``repro_torch.core.comm``) is the single place an
 # engine declares its cost model; ``crossover_bytes`` resolves the ``large``
@@ -239,7 +341,7 @@ def crossover_bytes(
     p: MachineParams,
     lo: float = 8.0,
     hi: float = 1 << 22,
-    large: str = "mla",
+    large: str = "smp",
 ) -> float:
     """Smallest message size where the ``large``-regime algorithm becomes
     cheaper than NAP (the paper measured ~2048 B vs SMP at 32 768

@@ -27,9 +27,10 @@
 //     warp loads the block's Q tiles once and streams K and V through a ring
 //     of kStages stages; two consumer warpgroups (64 query rows each) run
 //     wgmma and the softmax and release a stage when both are done with it.
-//     TMA zero-fills rows past S; the kernel still masks keys >= S.
+//     TMA zero-fills rows past S (past Sk for K and V); the kernel still
+//     masks keys >= Sk.
 //   * The epilogue works on the S fragment in registers: scale, softcap,
-//     masks (only on tiles that cross the diagonal, the window's edge or S),
+//     masks (only on tiles that cross the diagonal, the window's edge or Sk),
 //     row max and sum by shuffles among the 4 threads that share a row, and
 //     the correction of the O accumulator.  log2(e) is folded into the scale
 //     (or into the softcap's factor) and p = exp2f(s - m); NEG_INF stays
@@ -55,7 +56,7 @@
 //     for 16-bit types only).  Q K^T is K-major on both sides; for P V the
 //     B operand must be V^T with keys contiguous.  So a pre-pass kernel
 //     (split_kv), launched by the same wrapper call, writes K's hi and lo
-//     planes in K's layout and V^T's as (B, KV, hd, Sp), S padded to 64
+//     planes in K's layout and V^T's as (B, KV, hd, Sp), Sk padded to 64
 //     keys with zeros, into scratch the wrapper allocates.  V^T's keys are
 //     permuted within each group of 8 (0, 2, 4, 6, 1, 3, 5, 7), so that the
 //     S accumulator's fragment, which holds keys 2t and 2t + 1 of each 8,
@@ -80,21 +81,28 @@
 //     is the reference's up to the order of sums.
 //
 // Both kernels:
+//   * take Sk keys (Sk may differ from the S queries), with the Pallas
+//     kernel's start-aligned masks: rel = q - k, keys >= Sk never attended;
 //   * skip key tiles that lie wholly outside the causal band or the sliding
 //     window (gemma2's 4096-wide window at S = 32768 reads 1/8 of the causal
 //     band).  This leaves the result unchanged: in the Pallas kernel such a
 //     tile gives a row only the transient p = 1 of a row whose m is still
 //     NEG_INF, and the row's first valid tile wipes it exactly
-//     (corr = exp(-1e30 - m) = 0 in f32); every row of a causal or windowed
-//     call has a valid key;
+//     (corr = exp(-1e30 - m) = 0 in f32);
+//   * write 0 for a row with no valid key at all (a window with Sk < S, the
+//     queries past the last key's window): its m is still NEG_INF at the
+//     end, and its divisor is +inf (row_den).  That is the plain version's
+//     and the jnp oracle's answer
+//     (repro/kernels/ref.py); the Pallas kernel instead leaves the mean of
+//     V over its padded key tiles there (p = 1 on every masked key);
 //   * issue query tiles last-first, so the long causal rows start early;
 //   * multiply by the scale (1/sqrt(hd), as the Pallas kernel does at :120;
 //     the plain version divides by sqrt(hd)); apply the softcap
 //     c * tanh(s / c) before the mask, with the accurate tanhf; mask padded
-//     keys (k >= S), causal (q - k >= 0) and window (q - k < window);
+//     keys (k >= Sk), causal (q - k >= 0) and window (q - k < window);
 //   * map query head h to KV head h / (H / KV) (the reference's jnp.repeat
 //     along the head axis), indexed, not repeated;
-//   * take (B, S, H, hd) / (B, S, KV, hd), contiguous, and write the output
+//   * take (B, S, H, hd) / (B, Sk, KV, hd), contiguous, and write the output
 //     in q's type and layout, with 64-bit element offsets.
 // Build without --use_fast_math (tanhf, expf, exp2f stay accurate).  No
 // -lcuda: the tensor maps are encoded through cuTensorMapEncodeTiled, reached
@@ -350,6 +358,13 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
   if constexpr (HD == 128) wgmma_rs_n128(d, a, b);
 }
 
+// A row's divisor: the Pallas kernel's l clamp; +inf for a row that met no
+// valid key (its m is still NEG_INF), so that it gives 0 (signed: o / inf),
+// as the plain version does.  One select a row, none an element.
+__device__ __forceinline__ float row_den(float m, float l) {
+  return m == kNegInf ? __int_as_float(0x7f800000) : fmaxf(l, 1e-30f);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
@@ -390,8 +405,8 @@ __global__ void __launch_bounds__(kThreads, HD <= 64 ? 2 : 1)
 flash_attention_tc(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
-                   __nv_bfloat16* __restrict__ o, int64_t S, int64_t H,
-                   int64_t KV, int causal, int window, float scale,
+                   __nv_bfloat16* __restrict__ o, int64_t S, int64_t Sk,
+                   int64_t H, int64_t KV, int causal, int window, float scale,
                    float softcap) {
   using G = Geo<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -412,9 +427,10 @@ flash_attention_tc(const __grid_constant__ CUtensorMap q_map,
   const int64_t q0 = qt * kBQ;
 
   // keys [k_lo, k_hi) hold every key valid for some row of this block
+  // (none when k_lo >= k_hi: the rows past the last key's window)
   const int64_t q_last = (q0 + kBQ < S ? q0 + kBQ : S) - 1;
-  int64_t k_lo = 0, k_hi = S;
-  if (causal) k_hi = q_last + 1;
+  int64_t k_lo = 0, k_hi = Sk;
+  if (causal && q_last + 1 < Sk) k_hi = q_last + 1;
   if (window > 0 && q0 - window + 1 > 0) k_lo = q0 - window + 1;
   const int64_t kt_first = k_lo / kBK;
   const int64_t kt_end = (k_hi + kBK - 1) / kBK;
@@ -515,9 +531,9 @@ flash_attention_tc(const __grid_constant__ CUtensorMap q_map,
       fence_regs(s_acc);
 
       // scale, softcap, mask (on edge tiles only), row max
-      const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > r0) ||
+      const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > r0) ||
                         (window > 0 && r0 + kRows - 1 - k0 >= window);
-      const int lim = static_cast<int>(S - k0 < kBK ? S - k0 : kBK);
+      const int lim = static_cast<int>(Sk - k0 < kBK ? Sk - k0 : kBK);
       const int da = static_cast<int>(row_a - k0);  // row - tile's first key
       float mx_a = kNegInf, mx_b = kNegInf;
       if (capped) {
@@ -589,7 +605,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap q_map,
     l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
-  const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  const float den_a = row_den(m_a, l_a), den_b = row_den(m_b, l_b);
   const int64_t q_row = H * HD;
   __nv_bfloat16* ob = o + b * S * q_row + h * HD;
 #pragma unroll
@@ -660,14 +676,15 @@ int make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S,
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
-           int64_t S, int64_t H, int64_t KV, int64_t causal, int64_t window,
-           float scale, float softcap, cudaStream_t stream) {
+           int64_t S, int64_t Sk, int64_t H, int64_t KV, int64_t causal,
+           int64_t window, float scale, float softcap, cudaStream_t stream) {
   // TMA coordinates are 32-bit
-  if (S > 2147483647LL - kBQ || B * H > 65535) return cudaErrorInvalidValue;
+  if (S > 2147483647LL - kBQ || Sk > 2147483647LL - kBQ || B * H > 65535)
+    return cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
   int err = make_map<HD>(&q_map, q, B, S, H);
-  if (err == cudaSuccess) err = make_map<HD>(&k_map, k, B, S, KV);
-  if (err == cudaSuccess) err = make_map<HD>(&v_map, v, B, S, KV);
+  if (err == cudaSuccess) err = make_map<HD>(&k_map, k, B, Sk, KV);
+  if (err == cudaSuccess) err = make_map<HD>(&v_map, v, B, Sk, KV);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = Geo<HD>::kSmem;
   err = cudaFuncSetAttribute(flash_attention_tc<HD>,
@@ -676,10 +693,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((S + kBQ - 1) / kBQ),
                   static_cast<unsigned>(B * H));
-  // a window wider than S masks nothing
+  // q - k <= S - 1 for every query and key, whatever Sk: a window wider
+  // than S masks nothing
   const int win = window > 0 ? static_cast<int>(window < S ? window : S) : 0;
   flash_attention_tc<HD><<<grid, kThreads, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), S, H, KV,
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), S, Sk, H, KV,
       static_cast<int>(causal), win, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
@@ -702,6 +720,7 @@ using tc::mbar_arrive;
 using tc::mbar_expect_tx;
 using tc::mbar_init;
 using tc::mbar_wait;
+using tc::row_den;
 using tc::smem_u32;
 using tc::tma_load;
 using tc::wgmma_commit;
@@ -890,14 +909,14 @@ __device__ __forceinline__ int vt_key(int pos) {
   return (pos & ~7) | ((pos & 3) << 1) | ((pos >> 2) & 1);
 }
 
-// Pre-pass: K -> K_hi, K_lo in K's layout (B, S, KV, HD); V -> V^T_hi,
+// Pre-pass: K -> K_hi, K_lo in K's layout (B, Sk, KV, HD); V -> V^T_hi,
 // V^T_lo as (B, KV, HD, Sp), keys permuted within groups of 8 (vt_key)
-// and zero for keys in [S, Sp).  One block per 32 keys of one (batch, KV
+// and zero for keys in [Sk, Sp).  One block per 32 keys of one (batch, KV
 // head), staged through shared memory to transpose.
 template <int HD>
 __global__ void __launch_bounds__(256)
 split_kv(const float* __restrict__ k, const float* __restrict__ v,
-         float* __restrict__ ks, float* __restrict__ vts, int64_t S,
+         float* __restrict__ ks, float* __restrict__ vts, int64_t Sk,
          int64_t KV, int64_t Sp, int64_t k_plane, int64_t v_plane) {
   __shared__ float tile[32][HD + 1];
   const int tid = threadIdx.x;
@@ -908,8 +927,8 @@ split_kv(const float* __restrict__ k, const float* __restrict__ v,
     const int key = e / HD, col = e % HD;
     const int64_t s = s0 + key;
     float val = 0.f;
-    if (s < S) {
-      const int64_t idx = ((b * S + s) * KV + kvh) * HD + col;
+    if (s < Sk) {
+      const int64_t idx = ((b * Sk + s) * KV + kvh) * HD + col;
       val = v[idx];
       uint32_t hi, lo;
       split(k[idx], hi, lo);
@@ -938,9 +957,9 @@ flash_attention_tf32x3(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap klo_map,
                        const __grid_constant__ CUtensorMap vhi_map,
                        const __grid_constant__ CUtensorMap vlo_map,
-                       float* __restrict__ o, int64_t S, int64_t H,
-                       int64_t KV, int causal, int window, float scale,
-                       float softcap) {
+                       float* __restrict__ o, int64_t S, int64_t Sk,
+                       int64_t H, int64_t KV, int causal, int window,
+                       float scale, float softcap) {
   using G = Geo<HD>;
   constexpr int kBK = G::kBK;
   extern __shared__ uint8_t smem_raw[];
@@ -961,9 +980,10 @@ flash_attention_tf32x3(const __grid_constant__ CUtensorMap q_map,
   const int64_t q0 = qt * kBQ;
 
   // keys [k_lo, k_hi) hold every key valid for some row of this block
+  // (none when k_lo >= k_hi: the rows past the last key's window)
   const int64_t q_last = (q0 + kBQ < S ? q0 + kBQ : S) - 1;
-  int64_t k_lo = 0, k_hi = S;
-  if (causal) k_hi = q_last + 1;
+  int64_t k_lo = 0, k_hi = Sk;
+  if (causal && q_last + 1 < Sk) k_hi = q_last + 1;
   if (window > 0 && q0 - window + 1 > 0) k_lo = q0 - window + 1;
   const int64_t kt_first = k_lo / kBK;
   const int64_t kt_end = (k_hi + kBK - 1) / kBK;
@@ -1112,9 +1132,9 @@ flash_attention_tf32x3(const __grid_constant__ CUtensorMap q_map,
       }
 
       // scale, softcap, mask (on edge tiles only), row max
-      const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > r0) ||
+      const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > r0) ||
                         (window > 0 && r0 + kRows - 1 - k0 >= window);
-      const int lim = static_cast<int>(S - k0 < kBK ? S - k0 : kBK);
+      const int lim = static_cast<int>(Sk - k0 < kBK ? Sk - k0 : kBK);
       const int da = static_cast<int>(row_a - k0);  // row - tile's first key
       float mx_a = kNegInf, mx_b = kNegInf;
       if (capped) {
@@ -1194,7 +1214,7 @@ flash_attention_tf32x3(const __grid_constant__ CUtensorMap q_map,
     l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
-  const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  const float den_a = row_den(m_a, l_a), den_b = row_den(m_b, l_b);
   const int64_t q_row = H * HD;
   float* ob = o + b * S * q_row + h * HD;
 #pragma unroll
@@ -1258,34 +1278,35 @@ int make_vt_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t KV,
 
 template <int HD>
 int launch_split(const void* k, const void* v, void* ks, void* vts,
-                 int64_t B, int64_t S, int64_t KV, int64_t Sp,
+                 int64_t B, int64_t Sk, int64_t KV, int64_t Sp,
                  cudaStream_t stream) {
   if (B * KV > 65535 || Sp / 32 > 2147483647LL) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(Sp / 32),
                   static_cast<unsigned>(B * KV));
   split_kv<HD><<<grid, 256, 0, stream>>>(
       static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(ks), static_cast<float*>(vts), S, KV, Sp,
-      B * S * KV * HD, B * KV * HD * Sp);
+      static_cast<float*>(ks), static_cast<float*>(vts), Sk, KV, Sp,
+      B * Sk * KV * HD, B * KV * HD * Sp);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch(const void* q, const void* ks, const void* vts, void* o,
-           int64_t B, int64_t S, int64_t H, int64_t KV, int64_t Sp,
-           int64_t causal, int64_t window, float scale, float softcap,
-           cudaStream_t stream) {
+           int64_t B, int64_t S, int64_t Sk, int64_t H, int64_t KV,
+           int64_t Sp, int64_t causal, int64_t window, float scale,
+           float softcap, cudaStream_t stream) {
   using G = Geo<HD>;
   // TMA coordinates are 32-bit
-  if (S > 2147483647LL - kBQ || B * H > 65535) return cudaErrorInvalidValue;
+  if (S > 2147483647LL - kBQ || Sp > 2147483647LL - kBQ || B * H > 65535)
+    return cudaErrorInvalidValue;
   const float* k_hi = static_cast<const float*>(ks);
   const float* v_hi = static_cast<const float*>(vts);
   CUtensorMap q_map, khi_map, klo_map, vhi_map, vlo_map;
   int err = make_rows_map<HD>(&q_map, q, B, S, H, kRows);
   if (err == cudaSuccess)
-    err = make_rows_map<HD>(&khi_map, k_hi, B, S, KV, G::kBK);
+    err = make_rows_map<HD>(&khi_map, k_hi, B, Sk, KV, G::kBK);
   if (err == cudaSuccess)
-    err = make_rows_map<HD>(&klo_map, k_hi + B * S * KV * HD, B, S, KV,
+    err = make_rows_map<HD>(&klo_map, k_hi + B * Sk * KV * HD, B, Sk, KV,
                             G::kBK);
   if (err == cudaSuccess) err = make_vt_map<HD>(&vhi_map, v_hi, B, KV, Sp);
   if (err == cudaSuccess)
@@ -1298,11 +1319,12 @@ int launch(const void* q, const void* ks, const void* vts, void* o,
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((S + kBQ - 1) / kBQ),
                   static_cast<unsigned>(B * H));
-  // a window wider than S masks nothing
+  // q - k <= S - 1 for every query and key, whatever Sk: a window wider
+  // than S masks nothing
   const int win = window > 0 ? static_cast<int>(window < S ? window : S) : 0;
   flash_attention_tf32x3<HD><<<grid, kThreads, smem, stream>>>(
       q_map, khi_map, klo_map, vhi_map, vlo_map, static_cast<float*>(o), S,
-      H, KV, static_cast<int>(causal), win, scale, softcap);
+      Sk, H, KV, static_cast<int>(causal), win, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1324,62 +1346,63 @@ int by_hd(int64_t hd, F&& f) {
 
 extern "C" {
 
-// bf16: q, o (B, S, H, hd); k, v (B, S, KV, hd).  window <= 0 means no
+// bf16: q, o (B, S, H, hd); k, v (B, Sk, KV, hd).  window <= 0 means no
 // window, softcap <= 0 no softcap.
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* o, int64_t B, int64_t S, int64_t H,
-                          int64_t KV, int64_t hd, int64_t causal,
+                          void* o, int64_t B, int64_t S, int64_t Sk,
+                          int64_t H, int64_t KV, int64_t hd, int64_t causal,
                           int64_t window, float scale, float softcap,
                           int64_t device, void* stream) {
   if (B == 0 || S == 0 || H == 0) return cudaSuccess;
-  if (KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
+  if (Sk <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
   int err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_hd(hd, [&](auto HD) {
-    return tc::launch<decltype(HD)::value>(q, k, v, o, B, S, H, KV, causal,
-                                           window, scale, softcap, st);
+    return tc::launch<decltype(HD)::value>(q, k, v, o, B, S, Sk, H, KV,
+                                           causal, window, scale, softcap,
+                                           st);
   });
 }
 
-// float32, the pre-pass: k, v (B, S, KV, hd) -> ks (2, B, S, KV, hd) = K's
-// tf32 hi and lo planes; vts (2, B, KV, hd, Sp) = V^T's hi and lo planes,
-// keys permuted within groups of 8, zero past S.  Sp: S rounded up to a
-// multiple of 64.
+// float32, the pre-pass: k, v (B, Sk, KV, hd) -> ks (2, B, Sk, KV, hd) =
+// K's tf32 hi and lo planes; vts (2, B, KV, hd, Sp) = V^T's hi and lo
+// planes, keys permuted within groups of 8, zero past Sk.  Sp: Sk rounded
+// up to a multiple of 64.
 int repro_flash_attention_tf32x3_split(const void* k, const void* v,
                                        void* ks, void* vts, int64_t B,
-                                       int64_t S, int64_t KV, int64_t hd,
+                                       int64_t Sk, int64_t KV, int64_t hd,
                                        int64_t Sp, int64_t device,
                                        void* stream) {
-  if (B == 0 || S == 0) return cudaSuccess;
-  if (KV <= 0 || Sp < S || Sp % tc32::kKeyPad) return cudaErrorInvalidValue;
+  if (B == 0 || Sk == 0) return cudaSuccess;
+  if (KV <= 0 || Sp < Sk || Sp % tc32::kKeyPad) return cudaErrorInvalidValue;
   int err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_hd(hd, [&](auto HD) {
-    return tc32::launch_split<decltype(HD)::value>(k, v, ks, vts, B, S, KV,
-                                                   Sp, st);
+    return tc32::launch_split<decltype(HD)::value>(k, v, ks, vts, B, Sk,
+                                                   KV, Sp, st);
   });
 }
 
-// float32, the attention: q, o (B, S, H, hd); ks, vts from the pre-pass.
-// window <= 0 means no window, softcap <= 0 no softcap.
+// float32, the attention: q, o (B, S, H, hd); ks, vts from the pre-pass of
+// Sk keys.  window <= 0 means no window, softcap <= 0 no softcap.
 int repro_flash_attention_tf32x3(const void* q, const void* ks,
                                  const void* vts, void* o, int64_t B,
-                                 int64_t S, int64_t H, int64_t KV, int64_t hd,
-                                 int64_t Sp, int64_t causal, int64_t window,
-                                 float scale, float softcap, int64_t device,
-                                 void* stream) {
+                                 int64_t S, int64_t Sk, int64_t H, int64_t KV,
+                                 int64_t hd, int64_t Sp, int64_t causal,
+                                 int64_t window, float scale, float softcap,
+                                 int64_t device, void* stream) {
   if (B == 0 || S == 0 || H == 0) return cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || Sp < S || Sp % tc32::kKeyPad)
+  if (Sk <= 0 || KV <= 0 || H % KV != 0 || Sp < Sk || Sp % tc32::kKeyPad)
     return cudaErrorInvalidValue;
   int err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_hd(hd, [&](auto HD) {
-    return tc32::launch<decltype(HD)::value>(q, ks, vts, o, B, S, H, KV, Sp,
-                                             causal, window, scale, softcap,
-                                             st);
+    return tc32::launch<decltype(HD)::value>(q, ks, vts, o, B, S, Sk, H, KV,
+                                             Sp, causal, window, scale,
+                                             softcap, st);
   });
 }
 

@@ -4,7 +4,11 @@ The port of ``repro/kernels/flash_attention.py::flash_attention_pallas``
 (and of the GQA head expansion in ``repro/kernels/ops.py``): causal
 masking, a sliding window (``0 <= q - k < window`` with causal,
 ``q - k < window`` without), the tanh soft-cap ``c * tanh(s / c)`` applied
-before the mask, and scale ``1/sqrt(hd)``.  The kernel
+before the mask, and scale ``1/sqrt(hd)``.  Keys may be more or fewer than
+the queries (Sk != S); the masks are start-aligned (``q - k`` counts from
+the first query and the first key, as in the reference), and a query row
+with no valid key gives 0, as the plain version and the reference's jnp
+oracle give.  The kernel
 (``csrc/flash_attention.cu``) reads the (B, S, H, hd) layout directly and
 maps query head h to KV head ``h // (H // KV)``, so neither the head
 flattening nor the GQA repeat is materialised.  Both types run on the
@@ -59,13 +63,13 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load(_SOURCE)
         ptrs, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
         fn = lib.repro_flash_attention
-        fn.argtypes = [ptrs] * 4 + [i64] * 7 + [f32] * 2 + [i64, ptrs]
+        fn.argtypes = [ptrs] * 4 + [i64] * 8 + [f32] * 2 + [i64, ptrs]
         fn.restype = ctypes.c_int
         fn = lib.repro_flash_attention_tf32x3_split
         fn.argtypes = [ptrs] * 4 + [i64] * 6 + [ptrs]
         fn.restype = ctypes.c_int
         fn = lib.repro_flash_attention_tf32x3
-        fn.argtypes = [ptrs] * 4 + [i64] * 8 + [f32] * 2 + [i64, ptrs]
+        fn.argtypes = [ptrs] * 4 + [i64] * 9 + [f32] * 2 + [i64, ptrs]
         fn.restype = ctypes.c_int
         smem = lib.repro_flash_attention_smem
         smem.argtypes = [ctypes.c_int64, ctypes.c_int64]
@@ -77,7 +81,7 @@ def _lib() -> ctypes.CDLL:
 def _check(q, k, v, window, softcap) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(
-            f"q/k/v must be (B, S, H, hd) / (B, S, KV, hd), got "
+            f"q/k/v must be (B, S, H, hd) / (B, Sk, KV, hd), got "
             f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}"
         )
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -86,7 +90,7 @@ def _check(q, k, v, window, softcap) -> None:
             f"{q.dtype} {k.dtype} {v.dtype}"
         )
     B, S, H, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[1] != S \
+    if k.shape != v.shape or k.shape[0] != B or k.shape[1] < 1 \
             or k.shape[3] != hd:
         raise ValueError(
             f"k/v {tuple(k.shape)} {tuple(v.shape)} do not fit q "
@@ -109,7 +113,7 @@ def _plain(q, k, v, causal, window, softcap) -> torch.Tensor:
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
-    flat = lambda t: t.transpose(1, 2).reshape(B * H, S, hd)
+    flat = lambda t: t.transpose(1, 2).reshape(B * H, t.shape[1], hd)
     of = ref.flash_attention_ref(
         flat(q), flat(k), flat(v), causal=causal, window=window,
         softcap=softcap,
@@ -127,13 +131,14 @@ def flash_attention_bshd(
     softcap: float | None = None,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """q: (B, S, H, hd); k/v: (B, S, KV, hd) with H % KV == 0.  Returns
-    (B, S, H, hd) in q's type.  The layout of ``repro.kernels.ops``."""
+    """q: (B, S, H, hd); k/v: (B, Sk, KV, hd) with H % KV == 0 and any
+    Sk >= 1.  Returns (B, S, H, hd) in q's type.  The layout of
+    ``repro.kernels.ops``."""
     _check(q, k, v, window, softcap)
     if not _build.use_kernel(impl, q, k, v):
         return _plain(q, k, v, causal, window, softcap)
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    Sk, KV = k.shape[1], k.shape[2]
     # the kernels' tensor maps want 16-byte aligned bases
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
@@ -144,21 +149,21 @@ def flash_attention_bshd(
     if q.dtype == torch.bfloat16:
         rc = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, KV, hd, *mask, index, stream,
+            B, S, Sk, H, KV, hd, *mask, index, stream,
         )
     else:
-        # 3xTF32: K's tf32 hi / lo planes, and V^T's with S padded
-        Sp = -(-S // KEY_PAD) * KEY_PAD
-        ks = torch.empty((2, B, S, KV, hd), dtype=q.dtype, device=q.device)
+        # 3xTF32: K's tf32 hi / lo planes, and V^T's with Sk padded
+        Sp = -(-Sk // KEY_PAD) * KEY_PAD
+        ks = torch.empty((2, B, Sk, KV, hd), dtype=q.dtype, device=q.device)
         vts = torch.empty((2, B, KV, hd, Sp), dtype=q.dtype, device=q.device)
         rc = lib.repro_flash_attention_tf32x3_split(
             k.data_ptr(), v.data_ptr(), ks.data_ptr(), vts.data_ptr(),
-            B, S, KV, hd, Sp, index, stream,
+            B, Sk, KV, hd, Sp, index, stream,
         )
         _build.check(rc, "flash_attention (tf32x3 split)")
         rc = lib.repro_flash_attention_tf32x3(
             q.data_ptr(), ks.data_ptr(), vts.data_ptr(), out.data_ptr(),
-            B, S, H, KV, hd, Sp, *mask, index, stream,
+            B, S, Sk, H, KV, hd, Sp, *mask, index, stream,
         )
     _build.check(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
@@ -175,9 +180,9 @@ def flash_attention(
     softcap: float | None = None,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """q, k, v: (BH, S, hd) with heads flattened (GQA expanded), as
-    ``flash_attention_pallas`` takes them.  Returns (BH, S, hd) in q's
-    type."""
+    """q: (BH, S, hd), k, v: (BH, Sk, hd) with heads flattened (GQA
+    expanded), as ``flash_attention_pallas`` takes them.  Returns
+    (BH, S, hd) in q's type."""
     if q.dim() != 3:
         raise ValueError(f"q must be (BH, S, hd), got {tuple(q.shape)}")
     out = flash_attention_bshd(

@@ -65,18 +65,21 @@ def mamba_scan(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     C: torch.Tensor, *, impl: str = "auto",
 ) -> torch.Tensor:
-    """x/dt: (Bsz, S, d); A: (d, N) float32; B/C: (Bsz, S, N).  Returns
-    y (Bsz, S, d) float32."""
+    """x/dt: (Bsz, S, d); A: (d, N) float32 or bf16 (cast to float32, as
+    the reference's kernel does); B/C: (Bsz, S, N).  Returns y (Bsz, S, d)
+    float32."""
     if x.dim() != 3 or dt.shape != x.shape:
         raise ValueError(
             f"x/dt must share one (Bsz, S, d) shape, got {tuple(x.shape)} "
             f"{tuple(dt.shape)}"
         )
     Bsz, S, d = x.shape
-    if A.dim() != 2 or A.shape[0] != d or A.dtype != torch.float32:
+    if A.dim() != 2 or A.shape[0] != d or A.dtype not in _DTYPES:
         raise ValueError(
-            f"A must be float32 ({d}, N), got {A.dtype} {tuple(A.shape)}"
+            f"A must be float32 or bf16 ({d}, N), got {A.dtype} "
+            f"{tuple(A.shape)}"
         )
+    A = A.to(torch.float32)
     N = A.shape[1]
     if N not in STATE_SIZES:
         raise ValueError(f"state size N = {N} not in {STATE_SIZES}")

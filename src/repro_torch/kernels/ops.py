@@ -1,10 +1,11 @@
 """The public kernel API, with the signatures and layouts of
 ``repro/kernels/ops.py``.
 
-``flash_attention`` takes q (B, S, H, hd) and k/v (B, S, KV, hd) with
-H % KV == 0 and returns (B, S, H, hd) in q's type; ``rwkv6_scan`` takes
-r/k/v/w (B, S, H, hd) and u (H, hd); ``mamba_scan`` takes x/dt (Bsz, S, d),
-A (d, N), B/C (Bsz, S, N).  The scans return float32.
+``flash_attention`` takes q (B, S, H, hd) and k/v (B, Sk, KV, hd) with
+H % KV == 0 and any Sk >= 1, and returns (B, S, H, hd) in q's type;
+``rwkv6_scan`` takes r/k/v/w (B, S, H, hd) and u (H, hd); ``mamba_scan``
+takes x/dt (Bsz, S, d), A (d, N), B/C (Bsz, S, N).  The scans return
+float32; a bf16 u or A is cast to float32, as the reference's kernels do.
 
 ``impl``: ``"auto"`` launches the hand-written CUDA kernel for a CUDA
 tensor and takes the plain version for a CPU tensor; ``"plain"`` routes a
@@ -48,8 +49,8 @@ def rwkv6_scan(
     r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     u: torch.Tensor, *, impl: str = "auto",
 ) -> torch.Tensor:
-    """r/k/v/w: (B, S, H, hd); u: (H, hd) float32.  Returns (B, S, H, hd)
-    float32."""
+    """r/k/v/w: (B, S, H, hd); u: (H, hd) float32 or bf16.  Returns
+    (B, S, H, hd) float32."""
     if u.dim() != 2:
         raise ValueError(f"u must be (H, hd), got {tuple(u.shape)}")
     return rwkv6_scan_bshd(r, k, v, w, u.unsqueeze(0), impl=impl)

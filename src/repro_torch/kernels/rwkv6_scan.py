@@ -66,8 +66,9 @@ def rwkv6_scan_bshd(
     r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     u: torch.Tensor, *, impl: str = "auto",
 ) -> torch.Tensor:
-    """r/k/v/w: (B, S, H, hd); u: (Bu, H, hd) float32 with Bu = 1 (shared
-    by the batch) or B.  Returns (B, S, H, hd) float32."""
+    """r/k/v/w: (B, S, H, hd); u: (Bu, H, hd) float32 or bf16 (cast to
+    float32, as the reference's kernel does) with Bu = 1 (shared by the
+    batch) or B.  Returns (B, S, H, hd) float32."""
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)):
         raise ValueError(
             f"r/k/v/w must share one (B, S, H, hd) shape, got "
@@ -81,12 +82,13 @@ def rwkv6_scan_bshd(
     B, S, H, hd = r.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"head width {hd} not in {HEAD_DIMS}")
-    if u.dtype != torch.float32 or u.dim() != 3 \
+    if u.dtype not in _DTYPES or u.dim() != 3 \
             or u.shape[0] not in (1, B) or tuple(u.shape[1:]) != (H, hd):
         raise ValueError(
-            f"u must be float32 (1 or {B}, {H}, {hd}), got {u.dtype} "
-            f"{tuple(u.shape)}"
+            f"u must be float32 or bf16 (1 or {B}, {H}, {hd}), got "
+            f"{u.dtype} {tuple(u.shape)}"
         )
+    u = u.to(torch.float32)
     if not _build.use_kernel(impl, r, k, v, w, u):
         flat = lambda t: t.transpose(1, 2).reshape(B * H, S, hd)
         uf = u.expand(B, H, hd).reshape(B * H, hd)

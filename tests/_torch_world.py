@@ -10,11 +10,22 @@ of ``mode`` and writes its results to ``<out_dir>/rank<rank>.npz``:
   sizes; plus a compressed bucket sync with error feedback;
 * ``train`` — the reduced minicpm-2b train step on a 2x2 grid from the
   parameters in ``<out_dir>/params0.npz``: the synced gradients of step 1
-  and the losses of 2 int4+EF steps.
+  and the losses of 2 int4+EF steps;
+* ``rs_ag`` — the reduce-scatter / allgather engines (``mla_rs``,
+  ``psum_scatter``, ``mla_ag``, ``all_gather`` and the dispatched choice)
+  on the 2x2, 4x1 and 1x4 grids, every op, float32 / bf16 / int32, ragged
+  sizes; AG after RS; and the sharded gradient sync (plain, int8, int4,
+  mean on and off) with ``unshard_grads``, recording the wire bytes each
+  quantize-pack writes;
+* ``baselines`` — the ``rd``, ``smp``, ``ring`` and ``rabenseifner``
+  engines and the NAP extensions on the grids of the world's size (4:
+  2x2, 4x1, 1x4; 6: 3x2, 2x3, 6x1), and each rank's inter-node elements
+  in the ``mla``, ``mla_rs`` and ``mla_ag`` engines, counted at the
+  group primitives.
 
-``jax_train`` (one process, 4 virtual CPU devices) runs the JAX package's
-side of ``train`` and writes ``<out_dir>/jax.npz``.  The tests start a
-world with :func:`spawn_world`.
+``jax_train`` / ``jax_rs_ag`` (one process, 4 virtual CPU devices) run
+the JAX package's side of ``train`` / ``rs_ag`` and write
+``<out_dir>/jax.npz``.  The tests start a world with :func:`spawn_world`.
 """
 
 from __future__ import annotations
@@ -34,6 +45,59 @@ GRIDS = ((2, 2), (4, 1))
 SIZES = (1, 7, 23, 1000)
 OPS = ("sum", "max", "min")
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEED, TRAIN_STEPS = 32, 8, 3, 2
+
+
+RSAG_GRIDS = ((2, 2), (4, 1), (1, 4))
+DTYPES = ("float32", "bfloat16", "int32")
+BASELINE_GRIDS = {4: ((2, 2), (4, 1), (1, 4)), 6: ((3, 2), (2, 3), (6, 1))}
+BASELINES = ("rd", "smp", "ring", "rabenseifner")
+#: payload sizes for the inter-node byte count: divisible by every grid
+#: (the executed engines pad blocks to one size, so they meet the ragged
+#: bound exactly only there) and ragged
+COUNT_SIZES = (120, 23)
+SHARDED_POLICIES = (
+    ("plain_mean", dict(mean=True)),
+    ("plain_sum", dict(mean=False)),
+    ("int8_mean", dict(mean=True, compress_bits=8)),
+    ("int4_mean", dict(mean=True, compress_bits=4)),
+    ("int4_sum", dict(mean=False, compress_bits=4)),
+)
+
+
+def rs_engines(n):
+    return ("mla_rs", "psum_scatter", "auto") if n >= 2 else (
+        "psum_scatter", "auto")
+
+
+def ag_engines(n):
+    return ("mla_ag", "all_gather", "auto") if n >= 2 else (
+        "all_gather", "auto")
+
+
+def rsag_inputs(world, size, seed, dtype, op):
+    """(world, size) float32 values: random normals for float32, small
+    integers otherwise: |x| < 40, so that every partial sum of up to 6
+    ranks is an integer below 256, exact in bf16."""
+    rng = np.random.default_rng(seed)
+    if dtype == "float32":
+        return rng.standard_normal((world, size)).astype(np.float32)
+    return rng.integers(-39, 40, (world, size)).astype(np.float32)
+
+
+def shard_len(size, world):
+    """Per-rank shard of a reduce-scatter: ceil(ceil(e/ppn)/n) =
+    ceil(e/p) elements."""
+    return -(-size // world)
+
+
+def sharded_leaves(world):
+    """Per-rank gradient leaves: float32 leaves of ragged sizes and far
+    apart magnitudes, a bf16 leaf and an int32 leaf."""
+    rng = np.random.default_rng(12)
+    out = [(rng.standard_normal((world, s)) * m).astype(np.float32)
+           for s, m in ((300, 1.0), (5, 1e-3), (1029, 20.0), (77, 0.5))]
+    out.append(rng.integers(-1000, 1000, (world, 41)).astype(np.int32))
+    return out, ("float32", "float32", "float32", "bfloat16", "int32")
 
 
 def engines_for(n, ppn):
@@ -86,6 +150,312 @@ def run_collectives(rank, world):
                 out[f"{n}x{ppn}/sync{bits}/out{i}"] = s.numpy()
                 out[f"{n}x{ppn}/sync{bits}/err{i}"] = e.numpy()
     return out
+
+
+def _torch_dtype(name):
+    import torch
+
+    return getattr(torch, name)
+
+
+def _stored(t):
+    """A tensor as stored in the results: bf16 widened to float32."""
+    import torch
+
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def run_rs_ag(rank, world):
+    import torch
+
+    from repro_torch.core import CommContext, CommPolicy, Topology, grad_sync
+
+    out = {}
+    for n, ppn in RSAG_GRIDS:
+        ctx = CommContext(Topology.from_world(n, ppn))
+        for dtype in DTYPES:
+            tdt = _torch_dtype(dtype)
+            for op in OPS:
+                for size in SIZES:
+                    x = torch.from_numpy(
+                        rsag_inputs(world, size, size, dtype, op)[rank]
+                    ).to(tdt)
+                    for eng in rs_engines(n):
+                        algo = None if eng == "auto" else eng
+                        y = ctx.reduce_scatter(x, op, algorithm=algo)
+                        assert y.dtype == tdt
+                        out[f"{n}x{ppn}/rs/{eng}/{dtype}/{op}/{size}"] = (
+                            _stored(y))
+            for size in SIZES:
+                L = shard_len(size, world)
+                x = torch.from_numpy(
+                    rsag_inputs(world, L, size + 1, dtype, "sum")[rank]
+                ).to(tdt)
+                for eng in ag_engines(n):
+                    algo = None if eng == "auto" else eng
+                    y = ctx.allgather(x, elems=size, algorithm=algo)
+                    out[f"{n}x{ppn}/ag/{eng}/{dtype}/{size}"] = _stored(y)
+                # AG after RS gives back the sum
+                x = torch.from_numpy(
+                    rsag_inputs(world, size, size, dtype, "sum")[rank]
+                ).to(tdt)
+                for rs, ag in (("mla_rs", "mla_ag"),
+                               ("psum_scatter", "all_gather")):
+                    if n < 2 and rs == "mla_rs":
+                        continue
+                    full = ctx.allgather(
+                        ctx.reduce_scatter(x, algorithm=rs), elems=size,
+                        algorithm=ag)
+                    out[f"{n}x{ppn}/agrs/{rs}/{dtype}/{size}"] = _stored(full)
+        vals, dtypes = sharded_leaves(world)
+        leaves = [torch.from_numpy(v[rank]).to(_torch_dtype(d))
+                  for v, d in zip(vals, dtypes)]
+        wires = []
+        quantize = grad_sync.transport.quantize_pack
+
+        def recording(*args, **kw):
+            w = quantize(*args, **kw)
+            wires.append(w.clone())
+            return w
+
+        grad_sync.transport.quantize_pack = recording
+        try:
+            for name, kw in SHARDED_POLICIES:
+                ctx = CommContext(Topology.from_world(n, ppn), CommPolicy(**kw))
+                wires.clear()
+                shards = ctx.sync_grads_sharded(leaves)
+                full = grad_sync.unshard_grads(shards, leaves, ctx=ctx)
+                key = f"{n}x{ppn}/sharded/{name}"
+                for i, (s_, f_) in enumerate(zip(shards, full)):
+                    assert s_.dtype == f_.dtype == leaves[i].dtype
+                    out[f"{key}/shard{i}"] = _stored(s_)
+                    out[f"{key}/full{i}"] = _stored(f_)
+                for k, w in enumerate(wires):
+                    out[f"{key}/wire{k}"] = w.view(torch.uint8).numpy()
+        finally:
+            grad_sync.transport.quantize_pack = quantize
+    return out
+
+
+def _count_internode(topo, counts):
+    """Wrap the group primitives so that each call over this rank's
+    inter-node group adds the elements this rank sends to ``counts``."""
+    from repro_torch.core import collectives as C
+
+    inter = topo.require_groups().inter
+    saved = {k: getattr(C, k) for k in
+             ("_reduce_scatter", "_all_to_all", "_all_gather")}
+
+    def rows_out(tiles, group):
+        if group is inter and group.size > 1:
+            counts[0] += (group.size - 1) * tiles[0].numel()
+
+    def reduce_scatter(tiles, group):
+        rows_out(tiles, group)
+        return saved["_reduce_scatter"](tiles, group)
+
+    def all_to_all(tiles, group):
+        rows_out(tiles, group)
+        return saved["_all_to_all"](tiles, group)
+
+    def all_gather(x, group):
+        rows_out(x[None], group)
+        return saved["_all_gather"](x, group)
+
+    C._reduce_scatter, C._all_to_all, C._all_gather = (
+        reduce_scatter, all_to_all, all_gather)
+    return saved
+
+
+def run_baselines(rank, world):
+    import torch
+
+    from repro_torch.core import CommContext, CommPolicy, Topology
+    from repro_torch.core import collectives as C
+    from repro_torch.core import extensions
+
+    out = {}
+    for n, ppn in BASELINE_GRIDS[world]:
+        topo = Topology.from_world(n, ppn)
+        for eng in BASELINES:
+            ctx = CommContext(topo, CommPolicy(algorithm=eng))
+            for op in OPS:
+                for size in SIZES:
+                    x = torch.from_numpy(inputs(world, size, size)[rank])
+                    out[f"{n}x{ppn}/{eng}/{op}/{size}"] = ctx.allreduce(
+                        x, op).numpy()
+            for size in SIZES:
+                x = torch.from_numpy(rsag_inputs(
+                    world, size, size, "bfloat16", "sum")[rank]).to(
+                    torch.bfloat16)
+                y = ctx.allreduce(x)
+                assert y.dtype == torch.bfloat16
+                out[f"{n}x{ppn}/{eng}/bf16/{size}"] = _stored(y)
+        ok = extensions.supported(n, ppn)
+        out[f"{n}x{ppn}/ext/supported"] = np.asarray(ok)
+        for size in SIZES:
+            x = torch.from_numpy(inputs(world, size, size)[rank])
+            rows = torch.from_numpy(inputs(world, world * size, size + 2)[
+                rank].reshape(world, size))
+            calls = (
+                ("allgather", lambda: extensions.nap_allgather(
+                    x, topology=topo)),
+                ("reduce_scatter", lambda: extensions.nap_reduce_scatter(
+                    rows, topology=topo)),
+                ("allreduce_large", lambda: extensions.nap_allreduce_large(
+                    x, topology=topo)),
+            )
+            for name, call in calls:
+                if ok:
+                    out[f"{n}x{ppn}/ext/{name}/{size}"] = call().numpy()
+                else:
+                    try:
+                        call()
+                    except ValueError:
+                        continue
+                    raise AssertionError(f"{name} ran on {n}x{ppn}")
+        # each rank's inter-node elements in the striped engines
+        for size in COUNT_SIZES:
+            x = torch.from_numpy(inputs(world, size, size)[rank])
+            for eng, collective in (("mla", "allreduce"),
+                                    ("mla_rs", "reduce_scatter"),
+                                    ("mla_ag", "allgather")):
+                if n < 2:
+                    continue
+                counts = [0]
+                saved = _count_internode(topo, counts)
+                try:
+                    ctx = CommContext(topo)
+                    if collective == "allreduce":
+                        ctx.allreduce(x, algorithm=eng)
+                    elif collective == "reduce_scatter":
+                        ctx.reduce_scatter(x, algorithm=eng)
+                    else:
+                        ctx.allgather(x[: shard_len(size, world)],
+                                      elems=size, algorithm=eng)
+                finally:
+                    for k, f in saved.items():
+                        setattr(C, k, f)
+                out[f"{n}x{ppn}/count/{eng}/{size}"] = np.asarray(counts[0])
+    return out
+
+
+def run_jax_rs_ag(out_dir):
+    os.environ["XLA_FLAGS"] = (
+        "--xla_force_host_platform_device_count=4 "
+        + os.environ.get("XLA_FLAGS", "")
+    )
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    import ml_dtypes
+    from jax import lax
+    from jax.sharding import PartitionSpec as P
+
+    import repro.kernels.transport as jt
+    from repro import compat
+    from repro.core import comm, grad_sync
+    from repro.launch.mesh import make_mesh, mesh_topology
+
+    world = 4
+    np_dt = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16,
+             "int32": np.int32}
+    out = {}
+    wires = []
+    quantize, unpack = jt.quantize_pack, jt.unpack_dequantize
+    agreed_absmax = grad_sync._agreed_absmax
+
+    def stored(a):
+        a = np.asarray(a)
+        return a.astype(np.float32) if a.dtype == ml_dtypes.bfloat16 else a
+
+    for n, ppn in RSAG_GRIDS:
+        mesh = make_mesh((n, ppn), ("pod", "data"))
+        topo = mesh_topology(mesh)
+        ctx = comm.CommContext(topo)
+        spec = P(topo.axes)
+
+        def smap(fn, n_in):
+            return jax.jit(compat.shard_map(
+                fn, mesh=mesh, in_specs=(spec,) * n_in, out_specs=spec,
+                check_vma=False))
+
+        for dtype in DTYPES:
+            for op in OPS:
+                for eng in rs_engines(n):
+                    algo = None if eng == "auto" else eng
+                    fn = smap(lambda *xs: tuple(
+                        ctx.reduce_scatter(x.reshape(-1), op,
+                                           algorithm=algo)[None]
+                        for x in xs), len(SIZES))
+                    ys = fn(*(jnp.asarray(rsag_inputs(
+                        world, size, size, dtype, op).astype(np_dt[dtype]))
+                        for size in SIZES))
+                    for size, y in zip(SIZES, ys):
+                        out[f"{n}x{ppn}/rs/{eng}/{dtype}/{op}/{size}"] = (
+                            stored(y))
+            for eng in ag_engines(n):
+                algo = None if eng == "auto" else eng
+                fn = smap(lambda *xs: tuple(
+                    ctx.allgather(x.reshape(-1), elems=size,
+                                  algorithm=algo)[None]
+                    for x, size in zip(xs, SIZES)), len(SIZES))
+                ys = fn(*(jnp.asarray(rsag_inputs(
+                    world, shard_len(size, world), size + 1, dtype,
+                    "sum").astype(np_dt[dtype])) for size in SIZES))
+                for size, y in zip(SIZES, ys):
+                    out[f"{n}x{ppn}/ag/{eng}/{dtype}/{size}"] = stored(y)
+
+        # the sharded sync, its transport in the jnp reference (impl="xla"),
+        # each quantize-pack's wire bytes recorded per chip
+        def recording(x, scales, *, _calls=[0], **kw):
+            w = quantize(x, scales, impl="xla", **kw)
+            k = _calls[0]
+            _calls[0] += 1
+            chip = lax.axis_index("pod") * ppn + lax.axis_index("data")
+            jax.debug.callback(
+                lambda c, w_, k=k: wires.append((k, int(c), np.asarray(w_))),
+                chip, w)
+            return w
+
+        jt.quantize_pack = recording
+        jt.unpack_dequantize = functools.partial(unpack, impl="xla")
+        if n > 1 and ppn < 2:
+            # the reference's fused NAP-max raises on single-lane grids
+            # (NAP needs two lanes); agree the same maxima with one pmax
+            grad_sync._agreed_absmax = lambda parts, ctx: lax.pmax(
+                jnp.stack([jnp.max(jnp.abs(p)).astype(jnp.float32)
+                           for p in parts]), ctx.topology.axes)
+        vals, dtypes = sharded_leaves(world)
+        args = [jnp.asarray(v.astype(np_dt[d])) for v, d in zip(vals, dtypes)]
+        try:
+            for name, kw in SHARDED_POLICIES:
+                sctx = comm.CommContext(topo, comm.CommPolicy(**kw))
+
+                def local(*leaves, sctx=sctx):
+                    leaves = [g.reshape(g.shape[1:]) for g in leaves]
+                    shards = grad_sync.sync_grads_sharded(leaves, ctx=sctx)
+                    full = grad_sync.unshard_grads(shards, leaves, ctx=sctx)
+                    return tuple(t[None] for t in (*shards, *full))
+
+                del wires[:]
+                recording.__kwdefaults__["_calls"][0] = 0
+                res = smap(local, len(args))(*args)
+                jax.block_until_ready(res)
+                key = f"{n}x{ppn}/sharded/{name}"
+                L = len(args)
+                for i in range(L):
+                    out[f"{key}/shard{i}"] = stored(res[i])
+                    out[f"{key}/full{i}"] = stored(res[L + i])
+                for k in sorted({k for k, _, _ in wires}):
+                    rows = dict((c, w) for kk, c, w in wires if kk == k)
+                    out[f"{key}/wire{k}"] = np.stack(
+                        [rows[c].view(np.uint8) for c in range(world)])
+        finally:
+            jt.quantize_pack, jt.unpack_dequantize = quantize, unpack
+            grad_sync._agreed_absmax = agreed_absmax
+    np.savez(Path(out_dir) / "jax.npz", **out)
 
 
 def train_setup():
@@ -223,18 +593,20 @@ def run_jax_train(out_dir):
     np.savez(Path(out_dir) / "jax.npz", **out)
 
 
-def spawn_world(mode: str, out_dir: Path, timeout: float = 300.0):
-    """Run ``mode`` on a 4-rank gloo world; returns each rank's results."""
+def spawn_world(mode: str, out_dir: Path, timeout: float = 300.0,
+                world: int = WORLD):
+    """Run ``mode`` on a gloo world of ``world`` ranks; returns each
+    rank's results."""
     store = out_dir / "store"
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [
         subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), mode, str(r),
-             str(WORLD), str(store), str(out_dir)],
+             str(world), str(store), str(out_dir)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,
         )
-        for r in range(WORLD)
+        for r in range(world)
     ]
     logs = []
     try:
@@ -250,7 +622,7 @@ def spawn_world(mode: str, out_dir: Path, timeout: float = 300.0):
         logs[r][-3000:] for r in bad
     )
     out = []
-    for r in range(WORLD):
+    for r in range(world):
         with np.load(out_dir / f"rank{r}.npz") as z:
             out.append({k: z[k] for k in z.files})
     return out
@@ -258,8 +630,9 @@ def spawn_world(mode: str, out_dir: Path, timeout: float = 300.0):
 
 def main():
     mode = sys.argv[1]
-    if mode == "jax_train":
-        run_jax_train(sys.argv[2])
+    if mode in ("jax_train", "jax_rs_ag"):
+        {"jax_train": run_jax_train, "jax_rs_ag": run_jax_rs_ag}[mode](
+            sys.argv[2])
         return
     rank, world, store, out_dir = (
         int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
@@ -276,6 +649,10 @@ def main():
             out = run_collectives(rank, world)
         elif mode == "train":
             out = run_train(rank, world, out_dir)
+        elif mode == "rs_ag":
+            out = run_rs_ag(rank, world)
+        elif mode == "baselines":
+            out = run_baselines(rank, world)
         else:
             raise SystemExit(f"unknown mode {mode!r}")
         dist.barrier()

@@ -114,6 +114,74 @@ def test_flash_attention_flat_layout_matches_pallas(window):
     _close(got, want, "float32")
 
 
+# keys longer / shorter than the queries: (B, S, Sk, H, KV, hd)
+SK_SHAPES = [
+    (1, 40, 72, 2, 2, 16),    # Sk > S
+    (1, 72, 40, 2, 1, 32),    # Sk < S, GQA 2 -> 1
+    (2, 100, 37, 4, 2, 64),   # Sk < S, ragged against 32-row blocks
+]
+SK_MASKS = [
+    (True, None, None),
+    (True, 16, None),     # Sk < S: rows past the last key's window
+    (True, None, 30.0),
+    (False, None, None),
+    (False, 8, 50.0),     # Sk < S: fully masked rows, with the softcap
+]
+
+
+def _valid_rows(S, Sk, causal, window):
+    """(S,) bool: query rows with at least one valid key."""
+    rel = np.arange(S)[:, None] - np.arange(Sk)[None, :]
+    ok = np.ones_like(rel, dtype=bool)
+    if causal:
+        ok &= rel >= 0
+    if window is not None:
+        ok &= rel < window
+    return ok.any(axis=1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Sk,H,KV,hd", SK_SHAPES)
+@pytest.mark.parametrize("causal,window,softcap", SK_MASKS)
+def test_flash_attention_other_key_lengths_match_jax(B, S, Sk, H, KV, hd,
+                                                     causal, window, softcap,
+                                                     dtype):
+    """k / v of Sk != S keys, start-aligned masks (``rel = q - k``).
+
+    The port matches the reference's jnp oracle on every row.  Rows with
+    no valid key give 0 there (and in the port); the reference's Pallas
+    kernel leaves the mean of V over its padded key tiles in such rows
+    (p = 1 on every masked key), so it is held on the other rows."""
+    rng = np.random.default_rng(S * Sk + hd + H)
+    q = _arr(rng, (B, S, H, hd), dtype)
+    k = _arr(rng, (B, Sk, KV, hd), dtype)
+    v = _arr(rng, (B, Sk, KV, hd), dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ops.flash_attention(
+        _torch(q, dtype), _torch(k, dtype), _torch(v, dtype), **kw
+    )
+    assert got.shape == (B, S, H, hd) and got.dtype == _TORCH[dtype]
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    _close(got, jops.flash_attention(jq, jk, jv, impl="xla", **kw), dtype)
+    rows = _valid_rows(S, Sk, causal, window)
+    want = jops.flash_attention(jq, jk, jv, impl="pallas", block_q=32,
+                                block_k=32, **kw)
+    _close(got[:, rows], np.asarray(want)[:, rows], dtype)
+    assert not got[:, ~rows].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_rows_without_keys_give_zero(dtype):
+    # a window of 4 over 10 keys: queries 13.. see no key
+    rng = np.random.default_rng(3)
+    q = _torch(_arr(rng, (1, 20, 2, 16), dtype), dtype)
+    k, v = (_torch(_arr(rng, (1, 10, 2, 16), dtype), dtype) for _ in "kv")
+    out = ops.flash_attention(q, k, v, causal=True, window=4)
+    assert out[:, 13:].eq(0).all() and out[:, :13].abs().sum(-1).gt(0).all()
+    np.testing.assert_array_equal(
+        _valid_rows(20, 10, True, 4), np.arange(20) < 13)
+
+
 # ---------------------------------------------------------------------------
 # rwkv6 scan
 # ---------------------------------------------------------------------------
@@ -155,6 +223,22 @@ def test_rwkv6_scan_flat_layout_matches_pallas():
     _close(got, want, "float32")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_scan_takes_a_bf16_bonus(dtype):
+    """A bf16 ``u`` is cast to float32, as the reference's kernel does
+    (``u_ref[0].astype(float32)``)."""
+    B, S, H, hd = 1, 8, 2, 16
+    rng = np.random.default_rng(21)
+    r, k, v, w = _rwkv_inputs(rng, (B, S, H, hd), dtype)
+    u = _arr(rng, (H, hd), "bfloat16", scale=0.1)
+    got = ops.rwkv6_scan(*(_torch(a, dtype) for a in (r, k, v, w)),
+                         _torch(u, "bfloat16"))
+    assert got.shape == (B, S, H, hd) and got.dtype == torch.float32
+    j = [jnp.asarray(a) for a in (r, k, v, w, u)]
+    for impl in ("pallas", "xla"):
+        _close(got, jops.rwkv6_scan(*j, impl=impl, chunk=8), dtype)
+
+
 # ---------------------------------------------------------------------------
 # mamba scan
 # ---------------------------------------------------------------------------
@@ -184,6 +268,28 @@ def test_mamba_scan_matches_jax(B, S, d, N, dtype):
                dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_takes_a_bf16_A(dtype):
+    """A bf16 ``A`` is cast to float32, as the reference's kernel does
+    (``A_ref[...].astype(float32)``)."""
+    B, S, d, N = 1, 8, 32, 4
+    rng = np.random.default_rng(22)
+    x = _arr(rng, (B, S, d), dtype)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, d)))).astype(
+        np.float32).astype(_NP[dtype])
+    A = (-np.exp(rng.standard_normal((d, N)) * 0.5)).astype(
+        np.float32).astype(ml_dtypes.bfloat16)
+    Bm, Cm = _arr(rng, (B, S, N), dtype), _arr(rng, (B, S, N), dtype)
+    got = ops.mamba_scan(_torch(x, dtype), _torch(dt, dtype),
+                         _torch(A, "bfloat16"), _torch(Bm, dtype),
+                         _torch(Cm, dtype))
+    assert got.shape == (B, S, d) and got.dtype == torch.float32
+    j = [jnp.asarray(a) for a in (x, dt, A, Bm, Cm)]
+    for impl in ("pallas", "xla"):
+        _close(got, jops.mamba_scan(*j, impl=impl, chunk=8, block_d=32),
+               dtype)
+
+
 # ---------------------------------------------------------------------------
 # guards
 # ---------------------------------------------------------------------------
@@ -207,7 +313,7 @@ def _rwkv_args(hd=16, dtype=torch.float32):
 
 @pytest.mark.parametrize("case", [
     "device", "meta_device", "dtype", "mixed_dtype", "hd", "impl", "window",
-    "gqa",
+    "gqa", "no_keys", "kv_shapes",
 ])
 def test_flash_attention_rejects(case):
     q, k, v = _flash_args()
@@ -228,6 +334,10 @@ def test_flash_attention_rejects(case):
         kw["window"] = 0
     elif case == "gqa":
         k = v = torch.zeros((1, 8, 3, 32))
+    elif case == "no_keys":
+        k = v = torch.zeros((1, 0, 2, 32))
+    elif case == "kv_shapes":
+        k = torch.zeros((1, 9, 2, 32))
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v, **kw)
 
@@ -249,7 +359,8 @@ def test_rwkv6_scan_rejects(case):
     elif case == "impl":
         kw["impl"] = "cuda"
     elif case == "u_dtype":
-        u = u.to(torch.bfloat16)
+        # float32 and bf16 are taken (bf16 cast, as the reference does)
+        u = u.to(torch.float16)
     elif case == "u_shape":
         u = torch.zeros((3, 16))
     with pytest.raises(ValueError):
@@ -273,7 +384,8 @@ def test_mamba_scan_rejects(case):
     elif case == "impl":
         kw["impl"] = "xla"
     elif case == "A_dtype":
-        A = A.to(torch.bfloat16)
+        # float32 and bf16 are taken (bf16 cast, as the reference does)
+        A = A.to(torch.float16)
     elif case == "BC_shape":
         B = torch.zeros((1, 7, 4))
     with pytest.raises(ValueError):
@@ -353,13 +465,13 @@ def test_flash_attention_marshals_the_c_call(fake_launch, dtype, code, causal,
         ((name, args),) = fake_launch.calls
         assert name == "repro_flash_attention"
         assert args == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B, S, H, KV, hd, *mask)
+                        out.data_ptr(), B, S, S, H, KV, hd, *mask)
     else:
         (split, _), (name, args) = fake_launch.calls
         assert split == "repro_flash_attention_tf32x3_split"
         assert name == "repro_flash_attention_tf32x3"
         assert args[0] == q.data_ptr() and args[3] == out.data_ptr()
-        assert args[4:] == (B, S, H, KV, hd, tfa.KEY_PAD, *mask)
+        assert args[4:] == (B, S, S, H, KV, hd, tfa.KEY_PAD, *mask)
     assert out.shape == q.shape and out.dtype == dtype
     assert out.data_ptr() not in (q.data_ptr(), k.data_ptr(), v.data_ptr())
     assert ops.launch_counts()["flash_attention"] == 1
@@ -389,17 +501,52 @@ def test_flash_attention_float32_marshals_the_split_then_the_attention(
     assert ks.shape == (2, B, S, KV, hd) and vts.shape == (2, B, KV, hd, Sp)
     assert ks.dtype == vts.dtype == torch.float32
     (split, sargs), (name, args) = fake_launch.calls
-    # C signatures: k, v, ks, vts, B, S, KV, hd, Sp, device, stream; then
-    # q, ks, vts, o, B, S, H, KV, hd, Sp, causal, window, scale, softcap,
-    # device, stream
+    # C signatures: k, v, ks, vts, B, Sk, KV, hd, Sp, device, stream; then
+    # q, ks, vts, o, B, S, Sk, H, KV, hd, Sp, causal, window, scale,
+    # softcap, device, stream
     assert split == "repro_flash_attention_tf32x3_split"
     assert sargs == (k.data_ptr(), v.data_ptr(), ks.data_ptr(),
                      vts.data_ptr(), B, S, KV, hd, Sp, 0, 0)
     assert name == "repro_flash_attention_tf32x3"
     assert args == (q.data_ptr(), ks.data_ptr(), vts.data_ptr(),
-                    out.data_ptr(), B, S, H, KV, hd, Sp, 1, 7,
+                    out.data_ptr(), B, S, S, H, KV, hd, Sp, 1, 7,
                     1.0 / math.sqrt(hd), 0.0, 0, 0)
     assert ops.launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,Sk,Sp", [(9, 70, 128), (70, 9, 64), (64, 65, 128)])
+def test_flash_attention_marshals_other_key_lengths(fake_launch, monkeypatch,
+                                                    dtype, S, Sk, Sp):
+    # both entries take the key length beside S; the float32 scratch is
+    # sized by Sk (K's planes) and by Sk padded to KEY_PAD (V^T's)
+    B, H, KV, hd = 2, 4, 2, 32
+    q = torch.zeros((B, S, H, hd), dtype=dtype)
+    k, v = (torch.zeros((B, Sk, KV, hd), dtype=dtype) for _ in "kv")
+    made = []
+    empty = torch.empty
+
+    def spy(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy)
+    out = ops.flash_attention(q, k, v, causal=False, window=5)
+    monkeypatch.setattr(torch, "empty", empty)
+    assert out.shape == q.shape and out.dtype == dtype
+    mask = (0, 5, 1.0 / math.sqrt(hd), 0.0, 0, 0)
+    if dtype == torch.bfloat16:
+        ((name, args),) = fake_launch.calls
+        assert name == "repro_flash_attention"
+        assert args[4:] == (B, S, Sk, H, KV, hd, *mask)
+        return
+    ks, vts = (t for t in made if t.dim() == 5)
+    assert ks.shape == (2, B, Sk, KV, hd)
+    assert vts.shape == (2, B, KV, hd, Sp)
+    (_, sargs), (_, args) = fake_launch.calls
+    assert sargs[4:] == (B, Sk, KV, hd, Sp, 0, 0)
+    assert args[4:] == (B, S, Sk, H, KV, hd, Sp, *mask)
 
 
 def test_flash_attention_flat_layout_marshals_one_head(fake_launch):
@@ -408,7 +555,7 @@ def test_flash_attention_flat_layout_marshals_one_head(fake_launch):
     out = tfa.flash_attention(q, k, v, window=4)
     ((_, args),) = fake_launch.calls
     # (BH, S, hd) goes in as (BH, S, 1, hd): one head, no KV grouping
-    assert args[4:11] == (6, 9, 1, 1, 32, 1, 4)
+    assert args[4:12] == (6, 9, 9, 1, 1, 32, 1, 4)
     assert out.shape == (6, 9, 32) and out.dtype == torch.bfloat16
 
 
