@@ -101,6 +101,25 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    the three NAP extensions, called at world size 1 on a CUDA tensor,
    must return its input bit for bit on the card; the reduce-scatter /
    allgather dispatch decisions over a few grids and sizes are printed.
+12. ``serve``: the serving spine at minicpm-2b's published widths and
+   depth (40 layers, bf16, seed 0): a ``ServeEngine`` of 8 slots x 512
+   positions, prompt buckets 32 / 64 / 128 / 256, 12 requests from a seeded
+   generator (prompts of 16..256 tokens, 32..128 new tokens), 8 submitted
+   at the start and 4 after two engine steps.  Launch counters are zeroed
+   just before this run and read just after: no kernel of the repository
+   runs on this path (neither package's decode calls one).  Hard checks:
+   every request's tokens equal, bitwise, those of a serial run through a
+   fresh engine of the same shape; a request whose EOS is a token of its
+   own greedy stream stops there; a ``Router`` over two engines sharing
+   the model, with the 4 shortest-prompt requests, loses replica 0 after
+   two steps and every request still ends with its serial tokens.  Also:
+   the reduced config's decode on the card against the CPU (rows at
+   unequal indices, 1e-4); decode ms per step (median), decode tokens/s,
+   prefill ms per prompt token, peak memory; one decode step of 8 active
+   slots under ``torch.profiler`` (device busy, GEMM / other, idle share,
+   host syncs, kernel launches; the table goes to
+   ``chiprun_out/profile_decode_step.txt``) beside its bytes bound; the
+   decode collectives' dispatch at 2x4 and 4x8 (planning only).
 
 Then a line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits non-zero
@@ -1321,6 +1340,286 @@ def phase_collectives_world1() -> None:
                              f"or left the card: {engines}")
 
 
+# ---------------------------------------------------------------------------
+# the serving spine (phase serve)
+# ---------------------------------------------------------------------------
+
+# minicpm-2b as published (src/repro/configs/archs.py:42-53): 40 layers,
+# bf16.  The engine and its traffic: 8 slots of 512 positions, prompts of
+# 16..256 tokens in buckets of 32 / 64 / 128 / 256, 32..128 new tokens,
+# 12 requests from a seeded generator, 8 at the start and 4 in flight.
+SERVE = dict(num_slots=8, max_len=512, buckets=(32, 64, 128, 256),
+             requests=12, first=8, prompt=(16, 256), new=(32, 128))
+SERVE_ROUTER_REQUESTS = 4
+
+
+def serve_traffic(vocab: int, seed: int = SEED) -> list:
+    """``(prompt, max_new_tokens)`` of every request, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(SERVE["requests"]):
+        n = int(rng.integers(SERVE["prompt"][0], SERVE["prompt"][1] + 1))
+        new = int(rng.integers(SERVE["new"][0], SERVE["new"][1] + 1))
+        out.append((rng.integers(0, vocab, n).tolist(), new))
+    return out
+
+
+def serve_engine(model, device, **kw):
+    from repro_torch.serve import PromptBuckets, ServeEngine
+
+    return ServeEngine(model, num_slots=SERVE["num_slots"],
+                       max_len=SERVE["max_len"],
+                       buckets=PromptBuckets(SERVE["buckets"]),
+                       device=device, **kw)
+
+
+def serve_serial(engine, traffic) -> list:
+    """Each request alone through ``engine``, one after another."""
+    out = []
+    for prompt, new in traffic:
+        req = engine.submit(prompt, new)
+        out.append(engine.run()[req.rid])
+    return out
+
+
+def serve_continuous(engine, traffic, sync) -> tuple[list, list]:
+    """Continuous batching: ``first`` requests at the start, the rest after
+    two engine steps.  Returns the streams and each prefill's (prompt
+    tokens, seconds), timed between device synchronisations."""
+    prefills = []
+    prefill = engine._prefill
+
+    def timed(req):
+        sync()
+        t0 = time.perf_counter()
+        out = prefill(req)
+        sync()
+        prefills.append((len(req.prompt), time.perf_counter() - t0))
+        return out
+
+    engine._prefill = timed
+    reqs = [engine.submit(p, n) for p, n in traffic[: SERVE["first"]]]
+    for _ in range(2):
+        engine.step()
+    reqs += [engine.submit(p, n) for p, n in traffic[SERVE["first"]:]]
+    out = engine.run()
+    engine._prefill = prefill
+    return [out[r.rid] for r in reqs], prefills
+
+
+def serve_router_resume(model, device, traffic, serial) -> dict:
+    """A router over two engines sharing ``model``; replica 0 dies after
+    two steps of each.  Every accepted request must end with its serial
+    tokens (the resumed ones replay what they had generated)."""
+    from repro_torch.serve import Router
+
+    a, b = serve_engine(model, device), serve_engine(model, device)
+    router = Router([a, b])
+    reqs = [router.submit(p, n) for p, n in traffic]
+    for _ in range(2):
+        a.step()
+        b.step()
+    resumed = [r.rid for r in reqs
+               if r.generated and router.placement[r.rid] == 0]
+    moved = router.fail_replica(0)
+    while not b.idle:
+        b.step()
+    ok = [r.state == "finished" and r.generated == want
+          for r, want in zip(reqs, serial)]
+    if not (resumed and all(ok)):
+        raise AssertionError(f"router resume: resumed {resumed}, per "
+                             f"request equal to serial {ok}")
+    return {"requests": len(reqs), "replanned": moved,
+            "resumed_mid_stream": len(resumed), "equal_to_serial": all(ok)}
+
+
+def _serve_profile(engine, traffic) -> dict:
+    """One decode step of 8 active slots under ``torch.profiler``: wall,
+    device busy (GEMM / other), idle share, host syncs, launches; and the
+    valid KV positions the step reads."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for prompt, _ in traffic[: SERVE["num_slots"]]:
+        engine.submit(prompt[:16], 4)
+    engine.step()  # admissions and their prefills, one decode step
+    positions = int(engine._cache["index"].sum()) + SERVE["num_slots"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()  # ends with the tokens' copy to the host
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    classes = {"gemm": 0.0, "other": 0.0}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or _device_us(e) <= 0:
+            continue
+        low = e.key.lower()
+        key = "gemm" if any(k in low for k in (
+            "gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas",
+            "sm90_")) else "other"
+        classes[key] += _device_us(e) / 1e3
+    count = lambda *names: sum(e.count for e in events if e.key in names)
+    busy = sum(classes.values())
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "profile_decode_step.txt").write_text(
+        events.table(sort_by="self_cuda_time_total", row_limit=60))
+    engine.run()
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms, "busy_ms_by_class": classes,
+            "host_syncs": count("cudaStreamSynchronize",
+                                "cudaDeviceSynchronize",
+                                "cudaEventSynchronize"),
+            "kernel_launches": count("cudaLaunchKernel", "cuLaunchKernel",
+                                     "cudaLaunchKernelExC", "cuLaunchKernelEx"),
+            "kv_positions_read": positions}
+
+
+def _serve_small_reference() -> float:
+    """The reduced config in float32: the same decode on the card and on
+    the CPU, rows at unequal indices (0 / 3 / 7 at the start), logits at
+    rtol / atol 1e-4 over 12 steps."""
+    from repro_torch.models import build_model
+
+    cfg = reduced(MINICPM_2B)
+    cpu = build_model(cfg, generator=torch.Generator().manual_seed(SEED),
+                      device="cpu")
+    card = build_model(cfg, _detached(cpu.params()), device="cuda")
+    toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (3, 12))
+    caches = {}
+    for m in (cpu, card):
+        caches[m] = m.init_decode(3, 24)
+        caches[m]["index"].copy_(torch.tensor([0, 3, 7]))
+    worst = 0.0
+    for t in range(12):
+        logits = [m.decode_step(caches[m], torch.from_numpy(
+            toks[:, t:t + 1]).to(m.device))[0].cpu() for m in (cpu, card)]
+        worst = max(worst, float((logits[1] - logits[0]).abs().max()))
+        if not torch.allclose(logits[1], logits[0], rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"decode logits differ at step {t}: {worst}")
+    return worst
+
+
+def phase_serve(rates, smi) -> None:
+    """The serving spine on the card at minicpm-2b's published widths and
+    depth: continuous batching against serial decoding (bitwise), the EOS
+    exit, a router that loses a replica, one profiled decode step, the
+    decode dispatch at 2x4 / 4x8, and the five kernels' launch counts on
+    this path (0: neither package's decode calls a kernel)."""
+    from repro_torch import tree
+    from repro_torch.core import CommContext, Topology, napalg
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import decode_dispatch
+
+    t_phase = time.perf_counter()
+    small_err = _serve_small_reference()
+    cfg = MINICPM_2B
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = build_model(cfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    traffic = serve_traffic(cfg.vocab_size)
+    sync = torch.cuda.synchronize
+
+    # the main path: counters zeroed just before, read just after
+    transport.reset_launch_counts()
+    ops.reset_launch_counts()
+    engine = serve_engine(model, "cuda")
+    t0 = time.perf_counter()
+    cont, prefills = serve_continuous(engine, traffic, sync)
+    cont_s = time.perf_counter() - t0
+    launches = {**dict(transport.LAUNCHES), **ops.launch_counts()}
+    steps = engine.fit_rows()
+    decode_s = sum(sec for _, sec, _ in steps)  # slice_len 1: one a row
+    generated = sum(len(s) for s in cont)
+    peak = torch.cuda.max_memory_allocated()
+    profile_row = _serve_profile(engine, traffic)
+    del engine
+
+    serial_engine = serve_engine(model, "cuda")
+    serial = serve_serial(serial_engine, traffic)
+    del serial_engine
+    equal = [a == b for a, b in zip(cont, serial)]
+    if not all(equal):
+        raise AssertionError(f"continuous != serial for requests "
+                             f"{[i for i, e in enumerate(equal) if not e]}")
+
+    # EOS: a token of request 0's own greedy stream, first seen at k >= 4
+    s0 = serial[0]
+    k = next(i for i in range(4, len(s0)) if s0[i] not in s0[:i])
+    eos_engine = serve_engine(model, "cuda", eos_id=s0[k])
+    req = eos_engine.submit(*traffic[0])
+    got = eos_engine.run()[req.rid]
+    del eos_engine
+    if got != s0[: k + 1]:
+        raise AssertionError(f"EOS {s0[k]} at {k}: got {len(got)} tokens")
+
+    # the router's requests: the ones with the shortest prompts
+    pick = sorted(sorted(range(len(traffic)),
+                         key=lambda i: len(traffic[i][0]))[
+        :SERVE_ROUTER_REQUESTS])
+    router = serve_router_resume(model, "cuda", [traffic[i] for i in pick],
+                                 [serial[i] for i in pick])
+
+    # the decode step's bytes bound: weights and head read once (bf16),
+    # the KV positions the profiled step reads and the rows it writes
+    p = model.params()
+    head_bytes = p["embedding"].numel() * p["embedding"].element_size()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree.leaves(p["stack"]))
+    kv_per_pos = (cfg.num_layers * 2 * cfg.num_kv_heads
+                  * cfg.resolved_head_dim * 2)
+    kv_bytes = (profile_row["kv_positions_read"]
+                + SERVE["num_slots"]) * kv_per_pos
+    bound_bytes = weight_bytes + head_bytes + kv_bytes
+    dispatch = {}
+    for n, ppn in ((2, 4), (4, 8)):
+        group = n * ppn
+        b_max = max(napalg.ragged_splits(SERVE["num_slots"], group))
+        dispatch[f"{n}x{ppn}"] = decode_dispatch(
+            CommContext(Topology.of(n, ppn)), cfg, group, b_max)
+    decode_ms = [sec * 1e3 for _, sec, _ in steps]
+    emit({"phase": "serve", "config": cfg.name, "layers": cfg.num_layers,
+          "dtype": cfg.dtype, "nvidia_smi": smi,
+          "traffic": {"requests": len(traffic),
+                      "prompt_tokens": sum(len(p_) for p_, _ in traffic),
+                      "max_new_tokens": sum(n_ for _, n_ in traffic),
+                      **{k_: v for k_, v in SERVE.items()
+                         if k_ in ("num_slots", "max_len", "buckets")}},
+          "continuous_s": cont_s, "decode_steps": len(steps),
+          "decode_ms_per_step_median": statistics.median(decode_ms),
+          "decode_ms_per_step_min": min(decode_ms),
+          "decode_tokens_per_s": generated / decode_s,
+          "generated_tokens": generated,
+          "prefill_ms_per_prompt_token": (
+              sum(sec for _, sec in prefills) * 1e3
+              / sum(n_ for n_, _ in prefills)),
+          "prefills": len(prefills),
+          "peak_device_memory_bytes": peak,
+          "profile_decode_step": profile_row,
+          # the profiler slows the host: busy against an unprofiled step
+          "idle_share_of_median_step": 1 - profile_row["device_busy_ms"]
+          / statistics.median(decode_ms),
+          "decode_step_bound": {
+              "weight_bytes": weight_bytes, "head_bytes": head_bytes,
+              "kv_bytes": kv_bytes,
+              "bound_ms": bound_bytes / rates.bw * 1e3,
+              "bound_by": "bytes"},
+          "continuous_equals_serial": all(equal),
+          "eos": {"token": s0[k], "at": k, "finished_at_eos": True},
+          "router": router, "dispatch": dispatch,
+          "kernel_launches_on_this_path": launches,
+          "small_reference_max_abs_err": small_err,
+          "phase_s": time.perf_counter() - t_phase})
+    if any(launches.values()):
+        raise AssertionError(f"a kernel launched on the serving path: "
+                             f"{launches}")
+    del model, p
+    torch.cuda.empty_cache()
+
+
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
@@ -1358,6 +1657,7 @@ def main() -> None:
     full = phase_ops_full_width(rates, clock, fp32_per_ex2)
     rs = phase_rs_transport(rates)
     phase_collectives_world1()
+    phase_serve(rates, smi)
     t4 = k["timing"][4]
     replaces = {"quantize_pack": "src/repro/kernels/transport.py:158",
                 "unpack_dequantize": "src/repro/kernels/transport.py:222"}

@@ -43,6 +43,8 @@ class ModelConfig:
     tie_embeddings: bool = True
     act: str = "silu"             # silu | gelu | relu
     dtype: str = "bfloat16"
+    attn_logit_softcap: float | None = None   # cap * tanh(score / cap)
+    final_logit_softcap: float | None = None  # the same on the logits
 
     def __post_init__(self):
         if self.num_layers % len(self.pattern) != 0:

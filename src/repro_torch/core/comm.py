@@ -182,6 +182,11 @@ class Topology:
         """Total ranks — the reduction group size."""
         return self.n_nodes * self.ppn
 
+    @property
+    def has_slow_domain(self) -> bool:
+        """The grid spans more than one node (inter-node links exist)."""
+        return self.n_nodes > 1
+
     def require_groups(self) -> RankGroups:
         """Guard for execution entry points: a topology without process
         groups (``Topology.of``) cannot execute — its collectives would

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "require_on"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -16,4 +16,19 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
+    return dev
+
+
+def require_on(model, device=None) -> torch.device:
+    """:func:`resolve_device` of ``device``, checked against the device the
+    model's parameters are on (``cuda`` and ``cuda:<current>`` are one)."""
+    dev = resolve_device(device)
+    have = model.device
+    same = have.type == dev.type
+    if same and dev.type == "cuda" and have.index != dev.index:
+        cur = torch.cuda.current_device()
+        same = (have.index if have.index is not None else cur) == (
+            dev.index if dev.index is not None else cur)
+    if not same:
+        raise ValueError(f"the model is on {have}, not on {dev}")
     return dev

@@ -1,6 +1,8 @@
-"""The data-parallel train step with the paper's collectives.
+"""The data-parallel train step with the paper's collectives, and the serving
+steps.
 
-The port of ``repro/launch/steps.py::make_dp_train_step``: parameters are
+The port of ``repro/launch/steps.py::make_dp_train_step``,
+``make_prefill_step`` and ``make_serve_step``.  Train: parameters are
 replicated, every rank computes gradients on its rows of the batch, and
 the gradient buckets and the loss scalar are synchronised through a
 :class:`~repro_torch.core.comm.CommContext` — node-aware sync, compressed
@@ -14,11 +16,14 @@ import torch
 from .. import tree as tree_util
 from ..core import comm, grad_sync
 from ..core.collectives import _all_reduce
-from ..device import resolve_device
+from ..device import require_on, resolve_device
 from ..models import build_model, init_params
+from ..models.layers import head_dot
+from ..models.model import _final_hidden
 from ..optim import adamw_init, adamw_update, ef_init, make_schedule
 
-__all__ = ["make_dp_train_step", "init_train_state"]
+__all__ = ["make_dp_train_step", "init_train_state", "make_prefill_step",
+           "make_serve_step"]
 
 
 def init_train_state(cfg, opt_cfg, sync_cfg, *, params=None,
@@ -98,3 +103,28 @@ def make_dp_train_step(cfg, opt_cfg, topology: comm.Topology,
     step.plan = bucket_plan
     step.context = ctx
     return step
+
+
+def make_prefill_step(model, *, tail: int = 128, device=None):
+    """``prefill_step(batch) -> logits`` (B, min(tail, S), V) float32: the
+    prompt's forward pass, logits for its last ``tail`` positions."""
+    require_on(model, device)
+
+    @torch.no_grad()
+    def prefill_step(batch):
+        hidden = _final_hidden(model.params(), batch["tokens"], model.cfg)
+        return head_dot(hidden[:, -tail:], model.head_weights())
+
+    return prefill_step
+
+
+def make_serve_step(model, ctx: comm.CommContext | None = None, *,
+                    device=None):
+    """One-token cached greedy decode, ``step(cache, tokens) -> (next
+    tokens, cache)`` (:func:`repro_torch.serve.decode.greedy_step`): with a
+    multi-rank ``ctx`` the head is tensor-parallel, without it the local
+    head (the same contraction)."""
+    from ..serve.decode import greedy_step
+
+    require_on(model, device)
+    return greedy_step(model, ctx)

@@ -1,6 +1,8 @@
 from .model import (
     Model,
     build_model,
+    cache_from_jax,
+    cache_to_jax,
     init_params,
     params_from_jax,
     params_to_numpy,
@@ -9,6 +11,8 @@ from .model import (
 __all__ = [
     "Model",
     "build_model",
+    "cache_from_jax",
+    "cache_to_jax",
     "init_params",
     "params_from_jax",
     "params_to_numpy",

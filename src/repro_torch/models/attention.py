@@ -1,10 +1,17 @@
-"""Full-sequence causal GQA attention (the dense training path).
+"""GQA attention: full-sequence causal (train / prefill) and cached decode.
 
-The port of ``repro/models/attention.py::attention_full`` for the dense
-causal case, written as plain ``torch.matmul`` + softmax as the reference
-leaves it to XLA (the flash-attention kernel is a separate kernel, ported
-on its own later).  Queries are processed in chunks of ``q_chunk`` so the
+The port of ``repro/models/attention.py`` for the dense causal case,
+written as plain ``torch.matmul`` + softmax as the reference leaves it to
+XLA (neither package's models call the flash-attention kernel).
+:func:`attention_full` processes queries in chunks of ``q_chunk`` so the
 score matrix is at most (chunk x S).
+
+:func:`attention_decode` is one cached decode step over a ring-buffer
+cache (:func:`init_cache`) with a **per-row** ``index`` of shape (B,):
+each row writes its own ring slot ``index % size`` and masks against its
+own index.  The reference decodes a fixed batch with one scalar index and
+the serving engine's slots by vmapping a B=1 decode; this one function
+serves both, with no ``vmap``.  The cache is updated in place.
 """
 
 from __future__ import annotations
@@ -13,9 +20,10 @@ import math
 
 import torch
 
-from .layers import apply_rope, dense, init_dense
+from .layers import apply_rope, dense, init_dense, softcap
 
-__all__ = ["init_attention", "attention_full"]
+__all__ = ["init_attention", "attention_full", "init_cache",
+           "attention_decode"]
 
 NEG_INF = -2.0e38
 
@@ -44,6 +52,7 @@ def _sdpa_chunk(q, k, v, cfg, q_pos, k_pos):
     scores = torch.matmul(
         q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)
     ) * scale
+    scores = softcap(scores, cfg.attn_logit_softcap)
     mask = (q_pos[:, None] - k_pos[None, :]) >= 0
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
@@ -80,3 +89,66 @@ def attention_full(params, x: torch.Tensor, *, cfg, positions: torch.Tensor,
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, S, cfg.num_heads * hd)
     return dense(out, params["w_o"])
+
+
+# ---------------------------------------------------------------------------
+# decode with a KV cache (ring buffer for sliding-window layers)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch: int, max_len: int, *, window: int | None, dtype,
+               device, lead=()):
+    """Cache of one attention sublayer: ``k`` / ``v`` (*lead, B, KV, size,
+    hd) and ``pos`` (*lead, B, size) = -1 (empty), ``size = min(max_len,
+    window)``.  ``pos`` is per row because each row has its own index."""
+    size = min(max_len, window) if window else max_len
+    hd = cfg.resolved_head_dim
+    shape = lead + (batch, cfg.num_kv_heads, size, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full(lead + (batch, size), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def attention_decode(params, x: torch.Tensor, cache: dict,
+                     index: torch.Tensor, *, cfg,
+                     window: int | None = None):
+    """One-token decode. x: (B, 1, D); ``index`` (B,) the position each row
+    writes; ``cache`` as from :func:`init_cache` (no lead dims), updated in
+    place and returned."""
+    B = x.shape[0]
+    hd, K = cfg.resolved_head_dim, cfg.num_kv_heads
+    G = cfg.num_heads // K
+    positions = index[:, None]
+    q = apply_rope(dense(x, params["w_q"]).reshape(B, 1, cfg.num_heads, hd),
+                   positions, cfg.rope_theta)
+    k_new = apply_rope(dense(x, params["w_k"]).reshape(B, 1, K, hd),
+                       positions, cfg.rope_theta)
+    v_new = dense(x, params["w_v"]).reshape(B, 1, K, hd)
+    k, v, pos = cache["k"], cache["v"], cache["pos"]
+    size = k.shape[2]
+    rows = torch.arange(B, device=x.device)
+    slot = torch.remainder(index, size).long()
+    k[rows, :, slot] = k_new[:, 0]
+    v[rows, :, slot] = v_new[:, 0]
+    pos[rows, slot] = index.to(torch.int32)
+
+    # q (B, K, G, h) against the row's cache k (B, K, size, h): float32
+    # products of the inputs, as the reference's preferred_element_type
+    q = q.reshape(B, K, G, hd)
+    scores = torch.matmul(
+        q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)
+    ) * (1.0 / math.sqrt(hd))
+    scores = softcap(scores, cfg.attn_logit_softcap)
+    idx = index[:, None]
+    valid = (pos >= 0) & (pos <= idx)
+    if window is not None:
+        valid &= pos > idx - window
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.matmul(probs.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32)).to(x.dtype)
+    y = dense(out.reshape(B, 1, cfg.num_heads * hd), params["w_o"])
+    return y, cache

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "softcap",
     "rms_norm",
     "init_dense",
     "dense",
@@ -24,6 +25,13 @@ __all__ = [
     "rope_angles",
     "apply_rope",
 ]
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    """Logit soft-capping: ``cap * tanh(x / cap)`` (identity without a cap)."""
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):

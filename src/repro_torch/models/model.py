@@ -12,6 +12,19 @@ held by :class:`Model` as ``nn.Parameter``s; :meth:`Model.leaves` lists
 them in the order ``jax.tree.flatten`` lists the reference's (sorted keys).
 The training loss is a sequence-chunked cross-entropy with float32
 logits through the tied head.
+
+Cached decode (:meth:`Model.init_decode` / :meth:`Model.decode_hidden` /
+:meth:`Model.decode_step`) keeps one index per batch row, so a fixed batch
+and the serving engine's slots (each at its own position) run the same
+step.  The cache is a tree of tensors updated in place::
+
+    {"index": (B,) int32,
+     "stack": {"sub0": {"k", "v": (n_super, B, KV, max_len, hd),
+                        "pos": (n_super, B, max_len) int32}}}
+
+:func:`cache_from_jax` / :func:`cache_to_jax` convert the reference's
+decode caches (its fixed-batch form with a scalar index, or the engine's
+slot-stacked form) to this one and back.
 """
 
 from __future__ import annotations
@@ -21,7 +34,7 @@ import torch
 from torch import nn
 
 from . import transformer as tfm
-from .layers import head_dot, rms_norm
+from .layers import head_dot, rms_norm, softcap
 from .. import tree as tree_util
 from ..device import resolve_device
 
@@ -31,6 +44,8 @@ __all__ = [
     "init_params",
     "params_from_jax",
     "params_to_numpy",
+    "cache_from_jax",
+    "cache_to_jax",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -114,8 +129,60 @@ class Model(nn.Module):
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32,
                               device=labels.device)
-        ce = _chunked_loss(hidden, _head_weights(p, cfg), labels, mask)
+        ce = _chunked_loss(hidden, _head_weights(p, cfg), labels, mask,
+                           cap=cfg.final_logit_softcap)
         return ce, {"loss": ce, "ce": ce}
+
+    @property
+    def device(self) -> torch.device:
+        return self.root.final_norm.device
+
+    def head_weights(self) -> torch.Tensor:
+        """The (D, V) head matrix (the tied embedding's transpose)."""
+        return _head_weights(self.params(), self.cfg)
+
+    @torch.no_grad()
+    def logits(self, batch: dict) -> torch.Tensor:
+        """Full float32 logits (B, S, V) of ``batch["tokens"]`` (small use)."""
+        p = self.params()
+        hidden = _final_hidden(p, batch["tokens"], self.cfg)
+        return softcap(head_dot(hidden, _head_weights(p, self.cfg)),
+                       self.cfg.final_logit_softcap)
+
+    def init_decode(self, batch_size: int, max_len: int) -> dict:
+        """An empty decode cache for ``batch_size`` rows of ``max_len``
+        positions, every row at index 0."""
+        cfg = self.cfg
+        return {
+            "index": torch.zeros((batch_size,), dtype=torch.int32,
+                                 device=self.device),
+            "stack": tfm.init_stack_cache(cfg, batch_size, max_len,
+                                          _dtype(cfg), device=self.device),
+        }
+
+    @torch.no_grad()
+    def decode_hidden(self, cache: dict, tokens: torch.Tensor):
+        """tokens (B, 1): one cached decode step up to (and including) the
+        final norm, without the head.  Row ``b`` writes position
+        ``cache["index"][b]``; every index then advances by one.  The cache
+        is updated in place; returns ``(hidden (B, 1, D), cache)``."""
+        cfg = self.cfg
+        p = self.params()
+        index = cache["index"]
+        x = _embed_tokens(p, tokens, cfg)
+        x, _ = tfm.stack_decode(p["stack"], x, cache["stack"], index,
+                                cfg=cfg)
+        x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+        index.add_(1)
+        return x, cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor):
+        """:meth:`decode_hidden` plus the head: ``(logits (B, 1, V) float32,
+        cache)``."""
+        x, cache = self.decode_hidden(cache, tokens)
+        logits = head_dot(x, self.head_weights())
+        return softcap(logits, self.cfg.final_logit_softcap), cache
 
 
 def _embed_tokens(params, tokens, cfg):
@@ -137,7 +204,7 @@ def _final_hidden(params, tokens, cfg):
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def _chunked_loss(hidden, head_w, labels, mask, chunk=512):
+def _chunked_loss(hidden, head_w, labels, mask, chunk=512, cap=None):
     """CE over sequence chunks; logits (B, chunk, V) only, never (B, S, V)."""
     B, S, D = hidden.shape
     chunk = min(chunk, S)
@@ -148,7 +215,7 @@ def _chunked_loss(hidden, head_w, labels, mask, chunk=512):
         h = hidden[:, i : i + chunk]
         y = labels[:, i : i + chunk]
         m = mask[:, i : i + chunk]
-        logits = head_dot(h, head_w.to(h.dtype))
+        logits = softcap(head_dot(h, head_w.to(h.dtype)), cap)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, y[..., None])[..., 0]
         part, c = ((logz - gold) * m).sum(), m.sum()
@@ -224,3 +291,56 @@ def params_to_numpy(params) -> dict:
         return t.numpy().copy()
 
     return tree_util.tree_map(to_np, params)
+
+
+# ---------------------------------------------------------------------------
+# decode caches carried across from the JAX package
+# ---------------------------------------------------------------------------
+
+
+def cache_from_jax(tree_of_numpy: dict, device=None) -> dict:
+    """The port's decode cache from a reference decode cache (as numpy).
+
+    Takes the reference's fixed-batch cache (``model.init_decode``: scalar
+    ``index``, ``pos`` (n_super, size) shared by the rows) or its engine's
+    slot-stacked cache (a leading slot axis over B=1 caches: ``index``
+    (slots,), ``k`` (slots, n_super, 1, KV, size, hd))."""
+    device = resolve_device(device)
+    index = np.asarray(tree_of_numpy["index"])
+    stack = {}
+    for name, sub in tree_of_numpy["stack"].items():
+        k, v, pos = (np.asarray(sub[n]) for n in ("k", "v", "pos"))
+        if index.ndim == 0:
+            B = k.shape[1]
+            pos = np.broadcast_to(pos[:, None], (pos.shape[0], B, pos.shape[1]))
+        else:
+            k, v = (np.swapaxes(a[:, :, 0], 0, 1) for a in (k, v))
+            pos = np.swapaxes(pos, 0, 1)
+        stack[name] = {n: _tensor_from_numpy(a).to(device)
+                       for n, a in (("k", k), ("v", v), ("pos", pos))}
+    if index.ndim == 0:
+        index = np.full((next(iter(stack.values()))["k"].shape[1],), index)
+    return {"index": _tensor_from_numpy(index.astype(np.int32)).to(device),
+            "stack": stack}
+
+
+def cache_to_jax(cache: dict, *, slot_stacked: bool = False) -> dict:
+    """Inverse of :func:`cache_from_jax` (numpy leaves; bf16 as float32).
+    The fixed-batch form needs every row at the same index."""
+    to_np = lambda t: params_to_numpy({"t": t})["t"]
+    index = to_np(cache["index"])
+    stack = {}
+    for name, sub in cache["stack"].items():
+        k, v, pos = (to_np(sub[n]) for n in ("k", "v", "pos"))
+        if slot_stacked:
+            k, v = (np.swapaxes(a, 0, 1)[:, :, None] for a in (k, v))
+            pos = np.swapaxes(pos, 0, 1)
+        else:
+            if not (index == index[0]).all():
+                raise ValueError("the fixed-batch form needs one index for "
+                                 "every row")
+            pos = pos[:, 0]
+        stack[name] = {"k": k, "v": v, "pos": pos}
+    if not slot_stacked:
+        index = index[0]
+    return {"index": index, "stack": stack}

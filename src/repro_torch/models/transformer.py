@@ -4,7 +4,9 @@ The port of the dense path of ``repro/models/transformer.py``.  Every
 sublayer's parameters keep the reference's leading ``n_super`` dimension
 (``{"sub0": {...}}`` with leaves ``(n_super, ...)``), so the gradient
 leaves have the reference's shapes; the reference's ``lax.scan`` over that
-dimension becomes a loop over the layer index.
+dimension becomes a loop over the layer index.  The decode cache keeps the
+same leading ``n_super`` dimension (:func:`init_stack_cache`), and
+:func:`stack_decode` updates it in place, layer by layer.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from . import attention as attn_mod
 from .layers import glu_mlp, init_glu_mlp, rms_norm
 from .. import tree as tree_util
 
-__all__ = ["init_stack", "stack_apply"]
+__all__ = ["init_stack", "stack_apply", "init_stack_cache", "stack_decode"]
 
 
 def init_stack(cfg, dtype, *, generator, device):
@@ -55,3 +57,39 @@ def stack_apply(stack_params, x: torch.Tensor, *, cfg, positions):
             p = tree_util.tree_map(lambda t: t[layer], stack_params[f"sub{i}"])
             x = _sublayer_full(p, x, cfg=cfg, positions=positions)
     return x
+
+
+# ---------------------------------------------------------------------------
+# decode (single token, cached)
+# ---------------------------------------------------------------------------
+
+
+def init_stack_cache(cfg, batch: int, max_len: int, dtype, *, device):
+    """Cache tree mirroring the stack: ``{"sub<i>": {"k", "v", "pos"}}``
+    with leaves ``(n_super, batch, ...)``."""
+    lead = (cfg.num_super_layers,)
+    return {
+        f"sub{i}": attn_mod.init_cache(cfg, batch, max_len, window=None,
+                                       dtype=dtype, device=device,
+                                       lead=lead)
+        for i, _ in enumerate(cfg.pattern)
+    }
+
+
+def _sublayer_decode(p, x, cache, *, cfg, index):
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    h, _ = attn_mod.attention_decode(p["mixer"], h, cache, index, cfg=cfg)
+    x = x + h
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + glu_mlp(p["ffn"], h, cfg.act)
+
+
+def stack_decode(stack_params, x: torch.Tensor, cache, index, *, cfg):
+    """One-token decode through the stack; ``index`` (B,).  Updates
+    ``cache`` in place and returns ``(x, cache)``."""
+    for layer in range(cfg.num_super_layers):
+        for i, _ in enumerate(cfg.pattern):
+            p = tree_util.tree_map(lambda t: t[layer], stack_params[f"sub{i}"])
+            c = {k: t[layer] for k, t in cache[f"sub{i}"].items()}
+            x = _sublayer_decode(p, x, c, cfg=cfg, index=index)
+    return x, cache

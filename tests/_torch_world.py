@@ -23,9 +23,17 @@ of ``mode`` and writes its results to ``<out_dir>/rank<rank>.npz``:
   in the ``mla``, ``mla_rs`` and ``mla_ag`` engines, counted at the
   group primitives.
 
-``jax_train`` / ``jax_rs_ag`` (one process, 4 virtual CPU devices) run
-the JAX package's side of ``train`` / ``rs_ag`` and write
-``<out_dir>/jax.npz``.  The tests start a world with :func:`spawn_world`.
+* ``serve`` — the serving engine with the tensor-parallel head on a 2x2
+  (4 ranks) or 2x3 (6 ranks) grid from the parameters in
+  ``<out_dir>/params0.npz``: a three-request workload one request at a
+  time and with continuous batching (10 logical slots, the third request
+  joining in flight), the same with an EOS token, the engine's dispatch
+  report, and ``serve_batch`` on each rank's row of a batch with the EOS
+  exit agreed by the group.
+
+``jax_train`` / ``jax_rs_ag`` / ``jax_serve`` (one process, 4 virtual CPU
+devices) run the JAX package's side of ``train`` / ``rs_ag`` / ``serve``
+(2x2) and write ``<out_dir>/jax.npz``.  The tests start a world with :func:`spawn_world`.
 """
 
 from __future__ import annotations
@@ -62,6 +70,32 @@ SHARDED_POLICIES = (
     ("int4_mean", dict(mean=True, compress_bits=4)),
     ("int4_sum", dict(mean=False, compress_bits=4)),
 )
+
+
+SERVE_GRIDS = {4: (2, 2), 6: (2, 3)}
+#: (prompt, max_new_tokens): two prompt buckets, three budgets
+SERVE_WORKLOAD = (([3, 1, 4], 5), ([1, 5, 9, 2, 6], 4), ([2, 7, 1, 8], 6))
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_BUCKETS = 10, 24, (4, 8)
+
+
+def serve_streams(engine, workload=SERVE_WORKLOAD):
+    """Token streams of ``workload`` through ``engine``: continuous
+    batching, the third request submitted after the first step."""
+    reqs = [engine.submit(p, b) for p, b in workload[:2]]
+    engine.step()
+    reqs.append(engine.submit(*workload[2]))
+    out = engine.run()
+    assert engine.idle
+    return [out[r.rid] for r in reqs]
+
+
+def serve_serial(engine, workload=SERVE_WORKLOAD):
+    """The same requests one at a time through ``engine``."""
+    streams = []
+    for prompt, budget in workload:
+        req = engine.submit(prompt, budget)
+        streams.append(engine.run()[req.rid])
+    return streams
 
 
 def rs_engines(n):
@@ -458,6 +492,86 @@ def run_jax_rs_ag(out_dir):
     np.savez(Path(out_dir) / "jax.npz", **out)
 
 
+def run_serve(rank, world, out_dir):
+    from repro_torch import tree
+    from repro_torch.configs import MINICPM_2B, reduced
+    from repro_torch.core import CommContext, Topology
+    import torch
+
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build_model, init_params, params_from_jax
+    from repro_torch.serve import PromptBuckets, ServeEngine
+
+    cfg = reduced(MINICPM_2B)
+    with np.load(Path(out_dir) / "params0.npz") as z:
+        flat0 = [z[f"leaf{i}"] for i in range(len(z.files))]
+    _, td = tree.flatten(init_params(cfg, device="meta"))
+    model = build_model(cfg, params_from_jax(tree.unflatten(td, flat0), cfg,
+                                             "cpu"), device="cpu")
+    ctx = CommContext(Topology.from_world(*SERVE_GRIDS[world]))
+
+    def engine(eos_id=None):
+        return ServeEngine(model, num_slots=SERVE_SLOTS,
+                           max_len=SERVE_MAX_LEN,
+                           buckets=PromptBuckets(SERVE_BUCKETS),
+                           eos_id=eos_id, ctx=ctx, device="cpu")
+
+    out = {}
+    serial = serve_serial(engine())
+    cont_engine = engine()
+    cont = serve_streams(cont_engine)
+    eos = serial[0][2]
+    with_eos = serve_streams(engine(eos_id=eos))
+    for i in range(len(SERVE_WORKLOAD)):
+        out[f"serial{i}"] = np.asarray(serial[i])
+        out[f"cont{i}"] = np.asarray(cont[i])
+        out[f"eos{i}"] = np.asarray(with_eos[i])
+    out["eos_id"] = np.asarray(eos)
+    out["b_max"] = np.asarray(cont_engine.b_max)
+    # the fixed-batch driver: each rank serves its row, the EOS exit agreed
+    # by the group; the whole batch in one process is the reference
+    prompts = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (world, 4)))
+    free = serve_batch(model, prompts, gen_len=6, device="cpu")
+    eos = int(free[0, 1])
+    out["batch_ref"] = serve_batch(model, prompts, gen_len=6, eos_id=eos,
+                                   device="cpu").numpy()
+    out["batch_row"] = serve_batch(model, prompts[rank:rank + 1], gen_len=6,
+                                   eos_id=eos, ctx=ctx, device="cpu").numpy()
+    for name, row in cont_engine.dispatch_report().items():
+        out[f"dispatch/{name}"] = np.asarray(row["engine"])
+    return out
+
+
+def run_jax_serve(out_dir):
+    os.environ["XLA_FLAGS"] = (
+        "--xla_force_host_platform_device_count=4 "
+        + os.environ.get("XLA_FLAGS", "")
+    )
+    import jax
+
+    from repro.configs.archs import MINICPM_2B, reduced
+    from repro.launch.mesh import make_mesh
+    from repro.models import build_model
+    from repro.serve import PromptBuckets, ServeEngine
+
+    model = build_model(reduced(MINICPM_2B))
+    params = jax.jit(model.init)(jax.random.PRNGKey(0))
+    mesh = make_mesh(SERVE_GRIDS[4], ("pod", "data"))
+
+    def engine():
+        return ServeEngine(model, params, num_slots=SERVE_SLOTS,
+                           max_len=SERVE_MAX_LEN,
+                           buckets=PromptBuckets(SERVE_BUCKETS), mesh=mesh)
+
+    out = {}
+    for i, (s, c) in enumerate(zip(serve_serial(engine()),
+                                   serve_streams(engine()))):
+        out[f"serial{i}"] = np.asarray(s)
+        out[f"cont{i}"] = np.asarray(c)
+    np.savez(Path(out_dir) / "jax.npz", **out)
+
+
 def train_setup():
     from repro_torch.configs import MINICPM_2B, OptimizerConfig, reduced
     from repro_torch.core import CommPolicy
@@ -630,9 +744,9 @@ def spawn_world(mode: str, out_dir: Path, timeout: float = 300.0,
 
 def main():
     mode = sys.argv[1]
-    if mode in ("jax_train", "jax_rs_ag"):
-        {"jax_train": run_jax_train, "jax_rs_ag": run_jax_rs_ag}[mode](
-            sys.argv[2])
+    if mode in ("jax_train", "jax_rs_ag", "jax_serve"):
+        {"jax_train": run_jax_train, "jax_rs_ag": run_jax_rs_ag,
+         "jax_serve": run_jax_serve}[mode](sys.argv[2])
         return
     rank, world, store, out_dir = (
         int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
@@ -653,6 +767,8 @@ def main():
             out = run_rs_ag(rank, world)
         elif mode == "baselines":
             out = run_baselines(rank, world)
+        elif mode == "serve":
+            out = run_serve(rank, world, out_dir)
         else:
             raise SystemExit(f"unknown mode {mode!r}")
         dist.barrier()

@@ -12,8 +12,12 @@ import torch
 import repro_torch
 from repro_torch.configs import MINICPM_2B, OptimizerConfig, reduced
 from repro_torch.core import CommPolicy, Topology
-from repro_torch.launch import init_train_state, make_dp_train_step
-from repro_torch.models import build_model, params_from_jax
+from repro_torch.launch import (
+    init_train_state, make_dp_train_step, make_prefill_step, make_serve_step,
+)
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import build_model, cache_from_jax, params_from_jax
+from repro_torch.serve import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -61,6 +65,15 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def test_guard_sees_the_serving_modules():
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("serve/__init__.py", "serve/scheduler.py", "serve/router.py",
+                "serve/decode.py", "serve/engine.py", "runtime/fault.py",
+                "checkpoint/manager.py", "analysis/protocol_check.py",
+                "launch/serve.py"):
+        assert port / rel in PORT_FILES, rel
+
+
 def test_default_device_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert repro_torch.resolve_device().type == "cuda"
@@ -94,3 +107,46 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda):
     step = make_dp_train_step(cfg, opt, Topology.from_world(1, 1), pol,
                               device="cpu")
     assert step.plan.num_buckets >= 1
+
+
+def _cpu_model():
+    gen = torch.Generator().manual_seed(0)
+    return build_model(reduced(MINICPM_2B), generator=gen, device="cpu")
+
+
+def test_serving_entry_points_raise_without_cuda(no_cuda):
+    model = _cpu_model()
+    prompts = torch.zeros((1, 2), dtype=torch.long)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(model, num_slots=1, max_len=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.serve_batch(model, prompts, gen_len=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_serve_step(model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_prefill_step(model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cache_from_jax({"index": 0, "stack": {}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.main(["--arch", "minicpm-2b", "--reduced"])
+
+
+def test_serving_entry_points_run_on_cpu_when_asked(no_cuda, capsys):
+    model = _cpu_model()
+    eng = ServeEngine(model, num_slots=2, max_len=8, device="cpu")
+    req = eng.submit([1, 2], 3)
+    assert len(eng.run()[req.rid]) == 3
+    out = launch_serve.serve_batch(model, torch.ones((2, 3), dtype=torch.long),
+                                   gen_len=2, device="cpu")
+    assert out.shape == (2, 2) and out.device.type == "cpu"
+    step = make_serve_step(model, device="cpu")
+    tok, _ = step(model.init_decode(1, 4), torch.ones((1, 1),
+                                                      dtype=torch.long))
+    assert tok.shape == (1, 1)
+    assert make_prefill_step(model, tail=2, device="cpu")(
+        {"tokens": torch.ones((1, 3), dtype=torch.long)}).shape == (
+        1, 2, model.cfg.vocab_size)
+    launch_serve.main(["--arch", "minicpm-2b", "--reduced", "--device",
+                       "cpu", "--batch", "2", "--prompt-len", "3",
+                       "--gen", "2"])
+    assert "generated (2, 2) tokens" in capsys.readouterr().out

@@ -97,6 +97,12 @@ def test_engine_schedules_equal(n, ppn):
 
 
 @pytest.mark.parametrize("n,ppn", GRIDS)
+def test_topology_has_slow_domain_equal(n, ppn):
+    assert tc.Topology.of(n, ppn).has_slow_domain == (
+        jc.Topology.of(n, ppn).has_slow_domain)
+
+
+@pytest.mark.parametrize("n,ppn", GRIDS)
 def test_topology_geometry_equal(n, ppn):
     tt_, jt_ = tc.Topology.of(n, ppn), jc.Topology.of(n, ppn)
     for elems in (0, 1, 7, 19, 1000, 12345):
