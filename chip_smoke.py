@@ -101,8 +101,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    the three NAP extensions, called at world size 1 on a CUDA tensor,
    must return its input bit for bit on the card; the reduce-scatter /
    allgather dispatch decisions over a few grids and sizes are printed.
-12. ``serve``: the serving spine at minicpm-2b's published widths and
-   depth (40 layers, bf16, seed 0): a ``ServeEngine`` of 8 slots x 512
+12. ``serve``: the serving spine at minicpm-2b's published widths, its
+   depth cut to 8 of 40 layers (bf16, seed 0): a ``ServeEngine`` of 8 slots x 512
    positions, prompt buckets 32 / 64 / 128 / 256, 12 requests from a seeded
    generator (prompts of 16..256 tokens, 32..128 new tokens), 8 submitted
    at the start and 4 after two engine steps.  Launch counters are zeroed
@@ -121,6 +121,26 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    ``chiprun_out/profile_decode_step.txt``) beside its bytes bound; the
    decode collectives' dispatch at 2x4 and 4x8 (planning only).
 
+13. ``families``: the other decoder-only families at their published
+   widths (``repro_torch.configs.CHIP_FAMILIES``: gemma2-27b, qwen2-72b,
+   granite-20b and deepseek-moe-16b at 2 layers, jamba-1.5-large at one
+   super-layer with 4 of its 16 experts, rwkv6-1.6b and qwen2-vl-2b whole),
+   seeded parameters, each freed before the next.  Per config: bf16
+   serving through a ``ServeEngine`` of 8 slots x 256 positions, 6 seeded
+   requests (prompts 8..48, 8..32 new tokens, 4 at the start and 2 after
+   two steps), bitwise equal to a serial run through a fresh engine, no
+   kernel launched (decode ms per step, tokens/s, prefill ms per prompt
+   token, peak memory); float32 (TF32 off) teacher-forced decode against
+   the full forward at B 2, S 32, rtol = atol 2e-3 (jamba with 2 experts;
+   MoE capacity factor E / k so the full forward drops no token; for
+   deepseek the top-k sets of both paths position by position, a
+   difference allowed only where the k-th / (k+1)-th gate margin is
+   below 1e-6); gemma2 also over 4,352 tokens (window + 256), its last
+   256 positions compared.  Then 2 int4+EF steps of the train step at
+   batch 2 x 512 on gemma2-27b-2l, deepseek-moe-16b-2l and rwkv6-1.6b-4l
+   (finite losses, transport launches = buckets x steps; deepseek's
+   kernel route bitwise equal to its plain route).
+
 Then a line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits non-zero
 without one, or without the repository's ``src/`` beside this file.
@@ -128,6 +148,7 @@ without one, or without the repository's ``src/`` beside this file.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import importlib
 import json
@@ -154,7 +175,8 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: CUDA is not available")
 
 from repro_torch.configs import (  # noqa: E402
-    MINICPM_2B, MINICPM_2B_4L, OptimizerConfig, reduced,
+    CHIP_FAMILIES, MINICPM_2B, MINICPM_2B_4L, MINICPM_2B_8L,
+    OptimizerConfig, RWKV6_1_6B_4L, reduced,
 )
 from repro_torch.core import CommPolicy  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
@@ -1344,8 +1366,9 @@ def phase_collectives_world1() -> None:
 # the serving spine (phase serve)
 # ---------------------------------------------------------------------------
 
-# minicpm-2b as published (src/repro/configs/archs.py:42-53): 40 layers,
-# bf16.  The engine and its traffic: 8 slots of 512 positions, prompts of
+# minicpm-2b at its published widths (src/repro/configs/archs.py:42-53),
+# bf16, its 40 layers cut to 8 (MINICPM_2B_8L) to keep the script inside
+# its time with phase families beside it.  The engine and its traffic: 8 slots of 512 positions, prompts of
 # 16..256 tokens in buckets of 32 / 64 / 128 / 256, 32..128 new tokens,
 # 12 requests from a seeded generator, 8 at the start and 4 in flight.
 SERVE = dict(num_slots=8, max_len=512, buckets=(32, 64, 128, 256),
@@ -1382,7 +1405,8 @@ def serve_serial(engine, traffic) -> list:
     return out
 
 
-def serve_continuous(engine, traffic, sync) -> tuple[list, list]:
+def serve_continuous(engine, traffic, sync,
+                     first: int = SERVE["first"]) -> tuple[list, list]:
     """Continuous batching: ``first`` requests at the start, the rest after
     two engine steps.  Returns the streams and each prefill's (prompt
     tokens, seconds), timed between device synchronisations."""
@@ -1398,10 +1422,10 @@ def serve_continuous(engine, traffic, sync) -> tuple[list, list]:
         return out
 
     engine._prefill = timed
-    reqs = [engine.submit(p, n) for p, n in traffic[: SERVE["first"]]]
+    reqs = [engine.submit(p, n) for p, n in traffic[:first]]
     for _ in range(2):
         engine.step()
-    reqs += [engine.submit(p, n) for p, n in traffic[SERVE["first"]:]]
+    reqs += [engine.submit(p, n) for p, n in traffic[first:]]
     out = engine.run()
     engine._prefill = prefill
     return [out[r.rid] for r in reqs], prefills
@@ -1503,8 +1527,8 @@ def _serve_small_reference() -> float:
 
 
 def phase_serve(rates, smi) -> None:
-    """The serving spine on the card at minicpm-2b's published widths and
-    depth: continuous batching against serial decoding (bitwise), the EOS
+    """The serving spine on the card at minicpm-2b's published widths (8
+    of its 40 layers): continuous batching against serial decoding (bitwise), the EOS
     exit, a router that loses a replica, one profiled decode step, the
     decode dispatch at 2x4 / 4x8, and the five kernels' launch counts on
     this path (0: neither package's decode calls a kernel)."""
@@ -1515,7 +1539,7 @@ def phase_serve(rates, smi) -> None:
 
     t_phase = time.perf_counter()
     small_err = _serve_small_reference()
-    cfg = MINICPM_2B
+    cfg = MINICPM_2B_8L
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = build_model(cfg, generator=gen, device="cuda")
     torch.cuda.synchronize()
@@ -1620,6 +1644,372 @@ def phase_serve(rates, smi) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the other model families (phase families)
+# ---------------------------------------------------------------------------
+
+# Each configuration of CHIP_FAMILIES (repro_torch/configs/archs.py: the
+# published widths, depth cut, jamba's experts cut to 4) served bf16 by an
+# engine of 8 slots x 256 positions: 6 requests from a seeded generator,
+# prompts of 8..48 tokens, 8..32 new tokens, 4 at the start and 2 after
+# two engine steps.
+FAMILY_SERVE = dict(num_slots=8, max_len=256, requests=6, first=4,
+                    prompt=(8, 48), new=(8, 32))
+# float32 decode against the full forward: B 2, S 32, rtol = atol 2e-3
+FAMILY_CHECK = dict(B=2, S=32, tol=2e-3)
+# the train step: batch 2 x 512, AdamW, int4 + EF, 2 steps
+FAMILY_TRAIN = dict(B=2, S=512, steps=2)
+GATE_MARGIN = 1e-6
+
+
+def family_traffic(vocab: int, seed: int = SEED) -> list:
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(FAMILY_SERVE["requests"]):
+        n = int(rng.integers(FAMILY_SERVE["prompt"][0],
+                             FAMILY_SERVE["prompt"][1] + 1))
+        new = int(rng.integers(FAMILY_SERVE["new"][0],
+                               FAMILY_SERVE["new"][1] + 1))
+        out.append((rng.integers(0, vocab, n).tolist(), new))
+    return out
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _family_serve(model) -> dict:
+    """Continuous batching bitwise equal to serial decoding through a
+    fresh engine of the same shape; the kernels' launches on this path."""
+    from repro_torch.serve import ServeEngine
+
+    cfg = model.cfg
+    traffic = family_traffic(cfg.vocab_size)
+    make = lambda: ServeEngine(model, num_slots=FAMILY_SERVE["num_slots"],
+                               max_len=FAMILY_SERVE["max_len"],
+                               device=model.device)
+    transport.reset_launch_counts()
+    ops.reset_launch_counts()
+    engine = make()
+    t0 = time.perf_counter()
+    cont, prefills = serve_continuous(engine, traffic, torch.cuda.synchronize,
+                                      first=FAMILY_SERVE["first"])
+    cont_s = time.perf_counter() - t0
+    launches = {**dict(transport.LAUNCHES), **ops.launch_counts()}
+    steps = engine.fit_rows()
+    del engine
+    serial = serve_serial(make(), traffic)
+    peak = torch.cuda.max_memory_allocated()
+    equal = [a == b for a, b in zip(cont, serial)]
+    decode_ms = [sec * 1e3 for _, sec, _ in steps]
+    row = {
+        "requests": len(traffic),
+        "prompt_tokens": sum(len(p) for p, _ in traffic),
+        "generated_tokens": sum(len(t) for t in cont),
+        "continuous_s": cont_s, "decode_steps": len(steps),
+        "decode_ms_per_step_median": statistics.median(decode_ms),
+        "decode_ms_per_step_min": min(decode_ms),
+        "decode_tokens_per_s": sum(len(t) for t in cont)
+        / (sum(decode_ms) / 1e3),
+        "prefill_ms_per_prompt_token": sum(sec for _, sec in prefills) * 1e3
+        / sum(n for n, _ in prefills),
+        "peak_device_memory_bytes": peak,
+        "continuous_equals_serial": all(equal),
+        "kernel_launches_on_this_path": launches,
+    }
+    if not all(equal):
+        raise AssertionError(f"{cfg.name}: continuous != serial for "
+                             f"requests {[i for i, e in enumerate(equal) if not e]}")
+    if any(launches.values()):
+        raise AssertionError(f"{cfg.name}: a kernel launched on the serving "
+                             f"path: {launches}")
+    return row
+
+
+class _RouterLog:
+    """Records every MoE call's top-k expert sets and the gate margin
+    between the k-th and the (k+1)-th expert, by wrapping
+    ``repro_torch.models.moe.moe_apply`` (the transformer calls it through
+    the module)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.orig = moe, moe.moe_apply
+
+        def wrapped(params, x, *, cfg, groups=1):
+            k = cfg.moe.top_k
+            probs = torch.softmax(x.to(torch.float32) @ params[
+                "w_router"].to(torch.float32), dim=-1)
+            top = torch.topk(probs, min(k + 1, probs.shape[-1]), dim=-1)
+            margin = (top.values[..., k - 1] - top.values[..., k]
+                      if top.values.shape[-1] > k  # else no expert is left
+                      else torch.full_like(top.values[..., 0], math.inf))
+            self.calls.append((top.indices[..., :k].sort(-1).values, margin))
+            return self.orig(params, x, cfg=cfg, groups=groups)
+
+        moe.moe_apply = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.orig
+        return False
+
+
+def _decode_vs_full(model, hold: bool = True) -> dict:
+    """Teacher-forced ``decode_step`` logits against ``Model.logits``,
+    float32 (TF32 off), B 2, S 32, at rtol = atol 2e-3; with MoE, the
+    top-k sets of the two paths position by position.  ``hold=False``
+    reports the error without holding it (rwkv6 at its whole depth)."""
+    cfg = model.cfg
+    B, S, tol = FAMILY_CHECK["B"], FAMILY_CHECK["S"], FAMILY_CHECK["tol"]
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S))).to(model.device)
+    with _RouterLog() as full_log:
+        full = model.logits({"tokens": toks})
+    cache = model.init_decode(B, S)
+    outs, dec_log = [], []
+    for t in range(S):
+        with _RouterLog() as log:
+            logits, cache = model.decode_step(cache, toks[:, t : t + 1])
+        outs.append(logits[:, 0])
+        dec_log.append(log.calls)
+    dec = torch.stack(outs, dim=1)
+    row = {"max_abs_err": float((dec - full).abs().max()),
+           "max_abs_logit": float(full.abs().max()), "tol": tol,
+           "close": bool(torch.allclose(dec, full, rtol=tol, atol=tol))}
+    if cfg.moe is not None:
+        agree, left_out = [], 0
+        for layer, (sets, margin) in enumerate(full_log.calls):
+            same = torch.stack([(sets[:, t] == dec_log[t][layer][0][:, 0])
+                                .all(-1) for t in range(S)], dim=1)  # (B,S)
+            d_margin = torch.stack([dec_log[t][layer][1][:, 0]
+                                    for t in range(S)], dim=1)
+            near = torch.minimum(margin, d_margin) < GATE_MARGIN
+            left_out += int((~same & near).sum())
+            if bool((~same & ~near).any()):
+                raise AssertionError(
+                    f"{cfg.name}: MoE layer {layer}: top-k sets differ at a "
+                    "gate margin >= 1e-6")
+            # one string a row, one character a position: 1 = same set
+            agree += ["".join("1" if x else "0" for x in r)
+                      for r in same.tolist()]
+        row["topk_sets_agree_by_moe_layer_and_row"] = agree
+        row["positions_left_out_for_gate_margin"] = left_out
+        row["capacity_factor"] = cfg.moe.capacity_factor
+    if hold and not row["close"]:
+        raise AssertionError(f"{cfg.name}: decode != full forward: {row}")
+    return row
+
+
+def _gemma2_window(model) -> dict:
+    """One float32 sequence of window + 256 tokens through gemma2's 2
+    layers: teacher-forced decode against the full forward over the last
+    256 positions, where the local layer's ring buffer has wrapped and its
+    mask bites."""
+    from repro_torch.models.layers import head_dot, softcap
+    from repro_torch.models.model import _final_hidden
+
+    cfg = model.cfg
+    tail, tol = 256, FAMILY_CHECK["tol"]
+    S = cfg.sliding_window + tail
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, S))).to(model.device)
+    with torch.no_grad():
+        hidden, _ = _final_hidden(model.params(), {"tokens": toks}, cfg)
+        full = softcap(head_dot(hidden[:, -tail:], model.head_weights()),
+                       cfg.final_logit_softcap)
+    del hidden
+    cache = model.init_decode(1, S)
+    t0 = time.perf_counter()
+    for t in range(S - tail):
+        model.decode_hidden(cache, toks[:, t : t + 1])
+    outs = []
+    for t in range(S - tail, S):
+        logits, cache = model.decode_step(cache, toks[:, t : t + 1])
+        outs.append(logits[:, 0])
+    dec = torch.stack(outs, dim=1)
+    row = {"tokens": S, "window": cfg.sliding_window, "compared": tail,
+           "ring_positions": int(cache["stack"]["sub0"]["k"].shape[3]),
+           "decode_s": time.perf_counter() - t0,
+           "max_abs_err": float((dec - full).abs().max()), "tol": tol,
+           "close": bool(torch.allclose(dec, full, rtol=tol, atol=tol))}
+    if not row["close"]:
+        raise AssertionError(f"gemma2 window check failed: {row}")
+    return row
+
+
+class _ExactGroupNorm:
+    """RWKV6's ``_group_norm`` without its bf16 round trip (the port's
+    copy of the reference's rounds its float32 output through bf16, a
+    discontinuity that turns a one-ulp difference into 2^-8 of the value):
+    for the held float32 check of rwkv6 only."""
+
+    def __enter__(self):
+        from repro_torch.models import rwkv
+
+        def exact(x, scale, H, hd, eps=1e-5):
+            shape = x.shape
+            x = x.reshape(*shape[:-1], H, hd).to(torch.float32)
+            mu = x.mean(-1, keepdim=True)
+            var = x.var(-1, keepdim=True, unbiased=False)
+            return ((x - mu) * torch.rsqrt(var + eps)).reshape(shape) * scale
+
+        self.rwkv, self.orig = rwkv, rwkv._group_norm
+        rwkv._group_norm = exact
+        return self
+
+    def __exit__(self, *exc):
+        self.rwkv._group_norm = self.orig
+        return False
+
+
+def _check_config(cfg):
+    """The float32 configuration of the decode check: jamba with 2 of its
+    experts (45.7 GB); deepseek with a capacity factor of E / k, so the
+    full forward's 64 tokens fit every expert (at 1.25 it may drop some,
+    which no decode step does); rwkv6 at 4 of its 24 layers, held with
+    its group norm's bf16 round trip taken out (:class:`_ExactGroupNorm`).
+    Reason: the round trip turns a float32 difference of one ulp between
+    the two paths into a jump of 2^-8 of the value (on the CPU at full
+    width, decode against full forward: 1.5e-3 at one layer, 0.024 at
+    four; without the round trip 5.7e-6 and 2.5e-4), and the random-weight
+    stack grows such differences with depth (on the CPU at d 1024 and 24
+    layers, without the round trip, a 1e-7 relative change of the input
+    moves the logits by 0.029).  The reference's decode and full forward
+    agree only because XLA computes both alike, bit for bit.  The whole
+    depth and the 4 layers with the round trip are reported, not held."""
+    cfg = dataclasses.replace(cfg, name=cfg.name + "-f32", dtype="float32")
+    if cfg.pattern[0].mixer == "rwkv6":
+        cfg = dataclasses.replace(cfg, name=cfg.name.replace(
+            "-f32", "-4l-f32"), num_layers=4)
+    if cfg.name.startswith("jamba"):
+        cfg = dataclasses.replace(
+            cfg, name=cfg.name.replace("-4e", "-2e"),
+            moe=dataclasses.replace(cfg.moe, num_experts=2))
+    elif cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    return cfg
+
+
+def _family_train(cfg, device="cuda") -> dict:
+    """Two int4+EF steps of make_dp_train_step at world size 1, batch
+    2 x 512: finite losses, transport launches = buckets x steps; for the
+    MoE configuration also the plain transport route, bitwise equal."""
+    data = SyntheticLM(cfg.vocab_size, FAMILY_TRAIN["S"], FAMILY_TRAIN["B"],
+                       seed=SEED)
+    steps = FAMILY_TRAIN["steps"]
+    routes = ("auto", "plain") if cfg.moe is not None else ("auto",)
+    row, kept = {"config": cfg.name, "params": cfg.param_count()}, {}
+    for impl in routes:
+        _free()
+        policy = CommPolicy(algorithm="nap", mean=True, compress_bits=4,
+                            error_feedback=True, transport_impl=impl)
+        transport.reset_launch_counts()
+        plan, state, losses, times, _ = _run(cfg, policy, steps,
+                                             device=device, data=data)
+        counts = dict(transport.LAUNCHES)
+        want = (plan.num_buckets * steps
+                if impl == "auto" and device != "cpu" else 0)
+        if any(c != want for c in counts.values()):
+            raise AssertionError(f"{cfg.name} ({impl}): launches {counts} != "
+                                 f"{want}")
+        if not all(math.isfinite(l) for l in losses):
+            raise AssertionError(f"{cfg.name}: non-finite loss {losses}")
+        kept[impl] = (losses, [p.detach().clone() for p in
+                               state["model"].leaves()] if len(routes) > 1
+                      else None)
+        row[impl] = {"losses": losses, "step_ms": [t * 1e3 for t in times],
+                     "ms_per_step": times[-1] * 1e3,
+                     "tokens_per_s": FAMILY_TRAIN["B"] * FAMILY_TRAIN["S"]
+                     / times[-1],
+                     "peak_device_memory_bytes":
+                         torch.cuda.max_memory_allocated(),
+                     "buckets": plan.num_buckets, "launches": counts}
+        del state
+    if len(routes) > 1:
+        (la, pa), (lb, pb) = kept["auto"], kept["plain"]
+        row["plain_route_bitwise_equal"] = la == lb and all(
+            torch.equal(a, b) for a, b in zip(pa, pb))
+        if not row["plain_route_bitwise_equal"]:
+            raise AssertionError(f"{cfg.name}: kernel route != plain route")
+    _free()
+    return row
+
+
+def phase_families(smi, device="cuda") -> dict:
+    """Every other decoder-only family at its published widths: serving
+    (bf16), float32 decode against the full forward, gemma2's window at
+    4,352 tokens, and the int4+EF train step on three of them.  Returns
+    the transport kernels' launches on the train steps.  (``device`` is
+    for a CPU rehearsal at reduced sizes.)"""
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    for name, cfg in CHIP_FAMILIES.items():
+        t0 = time.perf_counter()
+        _free()
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        model = build_model(cfg, generator=gen, device=device)
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in model.leaves())
+        serve = _family_serve(model)
+        del model
+        _free()
+        cfg32 = _check_config(cfg)
+        reported = None
+        if cfg32.num_layers != cfg.num_layers:  # rwkv6: reported, not held
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            model = build_model(dataclasses.replace(cfg, dtype="float32"),
+                                generator=gen, device=device)
+            reported = {"whole_depth": _decode_vs_full(model, hold=False)}
+            del model
+            _free()
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        model = build_model(cfg32, generator=gen, device=device)
+        if reported is not None:
+            reported["bf16_round_trip_kept"] = _decode_vs_full(model,
+                                                               hold=False)
+            with _ExactGroupNorm():
+                check = _decode_vs_full(model)
+        else:
+            check = _decode_vs_full(model)
+        window = (_gemma2_window(model) if cfg.sliding_window else None)
+        check["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+        del model
+        emit({"phase": "families", "config": name, "layers": cfg.num_layers,
+              "dtype": cfg.dtype, "params": cfg.param_count(),
+              "param_bytes": param_bytes, "nvidia_smi": smi,
+              "serve": serve,
+              "decode_vs_full_f32": {"config": cfg32.name,
+                                     "experts": getattr(cfg32.moe,
+                                                        "num_experts", None),
+                                     **check},
+              "gemma2_window_f32": window,
+              "decode_vs_full_f32_reported_not_held": reported,
+              "seconds": time.perf_counter() - t0})
+    launches = {k: 0 for k in transport.LAUNCHES}
+    for cfg in (CHIP_FAMILIES["gemma2-27b-2l"],
+                CHIP_FAMILIES["deepseek-moe-16b-2l"], RWKV6_1_6B_4L):
+        t0 = time.perf_counter()
+        row = _family_train(cfg, device)
+        for k, c in row["auto"]["launches"].items():
+            launches[k] += c
+        emit({"phase": "families_train", "nvidia_smi": smi, **row,
+              "seconds": time.perf_counter() - t0})
+    _free()
+    emit({"phase": "families_done", "phase_s": time.perf_counter() - t_phase,
+          "train_launches": launches})
+    return launches
+
+
+
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
@@ -1658,6 +2048,7 @@ def main() -> None:
     rs = phase_rs_transport(rates)
     phase_collectives_world1()
     phase_serve(rates, smi)
+    family_launches = phase_families(smi)
     t4 = k["timing"][4]
     replaces = {"quantize_pack": "src/repro/kernels/transport.py:158",
                 "unpack_dequantize": "src/repro/kernels/transport.py:222"}
@@ -1666,6 +2057,9 @@ def main() -> None:
          "source": "src/repro_torch/kernels/csrc/transport.cu",
          "replaces": replaces[name],
          "launches": run["launches"][name],
+         # the families' train steps (buckets x steps) and serving (0)
+         "launches_families_train": family_launches[name],
+         "launches_families_serve": 0,
          "max_abs_err": k["max_abs_err"],
          "ms": t4[name][0], "plain_ms": t4[name][1],
          "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
@@ -1695,6 +2089,7 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": where, "launches": full["launches"][name],
+            "launches_families_serve": 0,
             "max_abs_err": max([ops_err[name]]
                                + [c["max_abs_err"] for c in rows]),
             # one launch per case of the main path: times are summed

@@ -1,21 +1,44 @@
 """Config dataclasses of the port: models and the optimizer.
 
-A copy of what the data-parallel train step needs from
-``repro/configs/base.py`` (the port imports nothing of the JAX package).
-Only the dense decoder family is carried so far: a model is
-``num_super_layers`` repetitions of its sublayer *pattern*, each sublayer an
-attention mixer with a dense GLU FFN.
+A copy of what the port needs from ``repro/configs/base.py`` (the port
+imports nothing of the JAX package).  A model is ``num_super_layers``
+repetitions of its sublayer *pattern*: each sublayer a mixer (global or
+sliding-window attention, Mamba, RWKV6) with an FFN (dense GLU, MoE, or the
+RWKV channel-mix that comes with an RWKV6 mixer).  Uniform decoders use a
+1-sublayer pattern; gemma2 alternates (local, global); jamba uses a
+1-attn : 7-mamba block with MoE on every other sublayer.  The
+encoder-decoder family (whisper) is not carried yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Literal
 
-__all__ = ["SubLayer", "ModelConfig", "OptimizerConfig"]
+__all__ = ["MoEConfig", "MambaConfig", "SubLayer", "ModelConfig",
+           "OptimizerConfig"]
 
-Mixer = Literal["attn"]
-FFN = Literal["dense"]
+Mixer = Literal["attn", "attn_local", "mamba", "rwkv6", "none"]
+FFN = Literal["dense", "moe", "none"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_expert: int                 # per-expert FFN hidden size
+    num_shared_experts: int = 0   # deepseek-style always-on experts
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int | None = None    # default ceil(d_model/16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,7 +52,7 @@ class SubLayer:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # "dense" (the only family ported so far)
+    family: str                   # dense | moe | hybrid | ssm | vlm
     num_layers: int               # total sublayers
     d_model: int
     num_heads: int
@@ -38,13 +61,30 @@ class ModelConfig:
     vocab_size: int
     head_dim: int | None = None   # default d_model // num_heads
     pattern: tuple[SubLayer, ...] = (SubLayer(),)
+
+    # attention features
+    sliding_window: int | None = None   # width of "attn_local" sublayers
+    attn_logit_softcap: float | None = None   # cap * tanh(score / cap)
+    final_logit_softcap: float | None = None  # the same on the logits
+    qkv_bias: bool = False
     rope_theta: float = 10_000.0
+    mrope_sections: tuple[int, int, int] | None = None  # qwen2-vl M-RoPE
+
+    moe: MoEConfig | None = None
+    mamba: MambaConfig | None = None
+    rwkv_head_size: int = 64
+
+    # encoder-decoder (whisper): not carried by the port yet
+    encoder_layers: int = 0
+    cross_attention: bool = False
+    frontend: str | None = None   # "vision_patches" stub: embeds input
+
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
     act: str = "silu"             # silu | gelu | relu
+    sandwich_norm: bool = False   # gemma2 post-mixer / post-ffn norms
+    scale_embeddings: bool = False  # gemma: embed * sqrt(d_model)
     dtype: str = "bfloat16"
-    attn_logit_softcap: float | None = None   # cap * tanh(score / cap)
-    final_logit_softcap: float | None = None  # the same on the logits
 
     def __post_init__(self):
         if self.num_layers % len(self.pattern) != 0:
@@ -52,12 +92,10 @@ class ModelConfig:
                 f"{self.name}: num_layers {self.num_layers} not divisible "
                 f"by pattern length {len(self.pattern)}"
             )
-        if self.family != "dense" or any(
-            s != SubLayer() for s in self.pattern
-        ):
+        if self.encoder_layers or self.cross_attention:
             raise NotImplementedError(
-                f"{self.name}: the port carries the dense attention family "
-                "only"
+                f"{self.name}: the port carries decoder-only models; the "
+                "encoder-decoder family is not ported yet"
             )
 
     @property
@@ -68,13 +106,81 @@ class ModelConfig:
     def num_super_layers(self) -> int:
         return self.num_layers // len(self.pattern)
 
+    @property
+    def max_attention_window(self) -> int | None:
+        """None if any sublayer attends globally (unbounded KV)."""
+        widths = []
+        for sub in self.pattern:
+            if sub.mixer == "attn":
+                return None
+            if sub.mixer == "attn_local":
+                widths.append(self.sliding_window)
+        return max(widths) if widths else 0
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic context growth: SSM / hybrid / windowed attention."""
+        return all(sub.mixer != "attn" for sub in self.pattern) or any(
+            sub.mixer in ("mamba", "rwkv6") for sub in self.pattern
+        ) or self.name.startswith("gemma2")
+
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + stack + norms)."""
+        """Analytic parameter count (embedding, head, stack), as the
+        reference reckons it (no final norm; RWKV's decay LoRA
+        approximated)."""
         d, hd = self.d_model, self.resolved_head_dim
-        q, kv = self.num_heads * hd, self.num_kv_heads * hd
-        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        per_layer = d * (q + 2 * kv) + q * d + 3 * d * self.d_ff + 2 * d
-        return total + per_layer * self.num_layers + d
+        q = self.num_heads * hd
+        kv = self.num_kv_heads * hd
+        total = self.vocab_size * d  # embed (tied head)
+        if not self.tie_embeddings:
+            total += self.vocab_size * d
+
+        def ffn_params(sub: SubLayer) -> int:
+            if sub.ffn == "dense":
+                return 3 * d * self.d_ff
+            if sub.ffn == "moe":
+                m = self.moe
+                per = 3 * d * m.d_expert
+                return ((m.num_experts + m.num_shared_experts) * per
+                        + d * m.num_experts)
+            return 0
+
+        def mixer_params(sub: SubLayer) -> int:
+            if sub.mixer in ("attn", "attn_local"):
+                return d * (q + 2 * kv) + q * d
+            if sub.mixer == "mamba":
+                m = self.mamba or MambaConfig()
+                d_in = m.expand * d
+                dt_rank = m.dt_rank or math.ceil(d / 16)
+                return (
+                    d * 2 * d_in          # in_proj
+                    + d_in * m.d_conv     # conv
+                    + d_in * (dt_rank + 2 * m.d_state)  # x_proj
+                    + dt_rank * d_in      # dt_proj
+                    + d_in * m.d_state    # A
+                    + d_in                # D
+                    + d_in * d            # out_proj
+                )
+            if sub.mixer == "rwkv6":
+                return 4 * d * d + 2 * d * 32  # r,k,v,o + lora decay approx
+            return 0
+
+        per_pattern = sum(
+            ffn_params(s) + mixer_params(s) + 2 * d for s in self.pattern
+        )
+        return total + per_pattern * self.num_super_layers
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed top-k + shared)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_expert
+        n_moe_layers = sum(
+            1 for s in self.pattern if s.ffn == "moe"
+        ) * self.num_super_layers
+        inactive = (m.num_experts - m.top_k) * per_expert * n_moe_layers
+        return self.param_count() - inactive
 
 
 @dataclasses.dataclass(frozen=True)

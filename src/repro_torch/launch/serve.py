@@ -13,9 +13,10 @@ batch (:func:`make_serve_shard`) and the early exit ("every sequence hit
 EOS") is agreed across the group each step, so every rank runs the same
 number of steps.
 
-Usage (on the card unless ``--device cpu``)::
+Usage (on the card unless ``--device cpu``; ``--arch`` is any of the
+nine decoder-only architectures of ``repro_torch.configs.ARCHS``)::
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \\
       --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
 """
 
@@ -27,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from ..configs import get_config, reduced
+from ..configs import ARCHS, get_config, reduced
 from ..core import comm
 from ..device import require_on, resolve_device
 from ..models import build_model
@@ -74,7 +75,7 @@ def serve_batch(model, prompts: torch.Tensor, *, gen_len: int,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

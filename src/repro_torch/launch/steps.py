@@ -107,12 +107,13 @@ def make_dp_train_step(cfg, opt_cfg, topology: comm.Topology,
 
 def make_prefill_step(model, *, tail: int = 128, device=None):
     """``prefill_step(batch) -> logits`` (B, min(tail, S), V) float32: the
-    prompt's forward pass, logits for its last ``tail`` positions."""
+    prompt's forward pass (``tokens``, or ``embeds`` with ``positions``),
+    logits for its last ``tail`` positions."""
     require_on(model, device)
 
     @torch.no_grad()
     def prefill_step(batch):
-        hidden = _final_hidden(model.params(), batch["tokens"], model.cfg)
+        hidden, _ = _final_hidden(model.params(), batch, model.cfg)
         return head_dot(hidden[:, -tail:], model.head_weights())
 
     return prefill_step

@@ -1,10 +1,12 @@
 """GQA attention: full-sequence causal (train / prefill) and cached decode.
 
-The port of ``repro/models/attention.py`` for the dense causal case,
-written as plain ``torch.matmul`` + softmax as the reference leaves it to
-XLA (neither package's models call the flash-attention kernel).
-:func:`attention_full` processes queries in chunks of ``q_chunk`` so the
-score matrix is at most (chunk x S).
+The port of ``repro/models/attention.py`` for decoder self-attention:
+grouped KV heads (GQA / MQA), sliding-window masks (gemma2's local
+layers), attention-logit soft-capping, QKV bias (qwen2) and M-RoPE
+(qwen2-vl), written as plain ``torch.matmul`` + softmax as the reference
+leaves it to XLA (neither package's models call the flash-attention
+kernel).  :func:`attention_full` processes queries in chunks of
+``q_chunk`` so the score matrix is at most (chunk x S).
 
 :func:`attention_decode` is one cached decode step over a ring-buffer
 cache (:func:`init_cache`) with a **per-row** ``index`` of shape (B,):
@@ -34,15 +36,36 @@ def init_attention(cfg, dtype, *, lead=(), generator, device):
     mk = lambda shape, **kw: init_dense(lead + shape, dtype,
                                         generator=generator, device=device,
                                         **kw)
-    return {
+    params = {
         "w_q": mk((d, q_dim)),
         "w_k": mk((d, kv_dim)),
         "w_v": mk((d, kv_dim)),
         "w_o": mk((q_dim, d), scale=1.0 / math.sqrt(q_dim)),
     }
+    if cfg.qkv_bias:
+        for name, width in (("b_q", q_dim), ("b_k", kv_dim),
+                            ("b_v", kv_dim)):
+            params[name] = torch.zeros(lead + (width,), dtype=dtype,
+                                       device=device)
+    return params
 
 
-def _sdpa_chunk(q, k, v, cfg, q_pos, k_pos):
+def _project_qkv(params, x, cfg, positions):
+    """q (B, S, H, hd), k, v (B, S, KV, hd), bias and RoPE applied."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = dense(x, params["w_q"], params.get("b_q"))
+    k = dense(x, params["w_k"], params.get("b_k"))
+    v = dense(x, params["w_v"], params.get("b_v"))
+    q = q.reshape(B, S, cfg.num_heads, hd)
+    k = k.reshape(B, S, cfg.num_kv_heads, hd)
+    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    return q, k, v
+
+
+def _sdpa_chunk(q, k, v, cfg, q_pos, k_pos, window):
     """Scores of one query chunk against full K/V.
 
     q: (B, K, G, Q, h); k, v: (B, K, 1, S, h).  Scores and the weighted
@@ -53,7 +76,10 @@ def _sdpa_chunk(q, k, v, cfg, q_pos, k_pos):
         q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)
     ) * scale
     scores = softcap(scores, cfg.attn_logit_softcap)
-    mask = (q_pos[:, None] - k_pos[None, :]) >= 0
+    rel = q_pos[:, None] - k_pos[None, :]
+    mask = rel >= 0
+    if window is not None:
+        mask &= rel < window
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.matmul(
@@ -63,16 +89,15 @@ def _sdpa_chunk(q, k, v, cfg, q_pos, k_pos):
 
 
 def attention_full(params, x: torch.Tensor, *, cfg, positions: torch.Tensor,
+                   window: int | None = None,
                    q_chunk: int = 1024) -> torch.Tensor:
-    """Causal self-attention over the full sequence. x: (B, S, D)."""
+    """Causal self-attention over the full sequence. x: (B, S, D);
+    ``positions`` (B, S), or (3, B, S) with M-RoPE; ``window`` the
+    sliding window of an ``attn_local`` sublayer."""
     B, S, _ = x.shape
     hd, K = cfg.resolved_head_dim, cfg.num_kv_heads
     G = cfg.num_heads // K
-    q = dense(x, params["w_q"]).reshape(B, S, cfg.num_heads, hd)
-    k = dense(x, params["w_k"]).reshape(B, S, K, hd)
-    v = dense(x, params["w_v"]).reshape(B, S, K, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _project_qkv(params, x, cfg, positions)
     # (B, S, K, G, h) -> (B, K, G, S, h); k/v -> (B, K, 1, S, h)
     q = q.reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4)
     k = k.permute(0, 2, 1, 3)[:, :, None]
@@ -83,7 +108,7 @@ def attention_full(params, x: torch.Tensor, *, cfg, positions: torch.Tensor,
         chunk = S
     outs = [
         _sdpa_chunk(q[:, :, :, i : i + chunk], k, v, cfg,
-                    pos[i : i + chunk], pos)
+                    pos[i : i + chunk], pos, window)
         for i in range(0, S, chunk)
     ]
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
@@ -121,12 +146,7 @@ def attention_decode(params, x: torch.Tensor, cache: dict,
     B = x.shape[0]
     hd, K = cfg.resolved_head_dim, cfg.num_kv_heads
     G = cfg.num_heads // K
-    positions = index[:, None]
-    q = apply_rope(dense(x, params["w_q"]).reshape(B, 1, cfg.num_heads, hd),
-                   positions, cfg.rope_theta)
-    k_new = apply_rope(dense(x, params["w_k"]).reshape(B, 1, K, hd),
-                       positions, cfg.rope_theta)
-    v_new = dense(x, params["w_v"]).reshape(B, 1, K, hd)
+    q, k_new, v_new = _project_qkv(params, x, cfg, index[:, None])
     k, v, pos = cache["k"], cache["v"], cache["pos"]
     size = k.shape[2]
     rows = torch.arange(B, device=x.device)

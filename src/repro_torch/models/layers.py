@@ -1,6 +1,7 @@
-"""Shared layer primitives: RMS norm, dense projections, GLU MLP, RoPE.
+"""Shared layer primitives: RMS norm, dense projections, GLU MLP, RoPE and
+qwen2-vl's M-RoPE.
 
-The port of the dense-family parts of ``repro/models/layers.py``.  A
+The port of ``repro/models/layers.py``.  A
 projection keeps its input dtype (bf16 in, bf16 out, f32 accumulation in
 cuBLAS); :func:`head_dot` gives float32 logits from float32 products of
 the (possibly bf16) inputs, as the reference's
@@ -63,7 +64,13 @@ def head_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
-_ACTS = {"silu": F.silu, "gelu": F.gelu, "relu": F.relu}
+# gelu is the tanh form: the reference's ``jax.nn.gelu`` defaults to
+# ``approximate=True``
+_ACTS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+}
 
 
 def init_glu_mlp(d_model: int, d_ff: int, dtype, *, lead=(), generator,
@@ -93,11 +100,33 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
-    """Rotate q/k: x (B, S, H, hd); positions (B, S)."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: tuple[int, int, int] | None = None):
+    """Rotate q/k: x (B, S, H, hd); positions (B, S), or (3, B, S) with
+    M-RoPE.
+
+    M-RoPE (qwen2-vl): the head_dim/2 frequency slots are split into
+    (temporal, height, width) sections, each rotated by its own position
+    stream; text-only (B, S) positions serve all three streams."""
     hd = x.shape[-1]
     half = hd // 2
-    cos, sin = rope_angles(positions, hd, theta)
+    if mrope_sections is not None:
+        if positions.dim() == 2:
+            positions = positions.expand((3,) + tuple(positions.shape))
+        cos_parts, sin_parts = [], []
+        start = 0
+        for sec, pos in zip(mrope_sections, positions):
+            freq = 1.0 / (theta ** (torch.arange(
+                start, start + sec, dtype=torch.float32,
+                device=positions.device) / half))
+            ang = pos.to(torch.float32)[..., None] * freq
+            cos_parts.append(torch.cos(ang))
+            sin_parts.append(torch.sin(ang))
+            start += sec
+        cos = torch.cat(cos_parts, dim=-1)
+        sin = torch.cat(sin_parts, dim=-1)
+    else:
+        cos, sin = rope_angles(positions, hd, theta)
     cos, sin = cos[..., None, :], sin[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

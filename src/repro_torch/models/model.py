@@ -1,9 +1,12 @@
 """Public model API: ``build_model(cfg, ...) -> Model`` (an ``nn.Module``).
 
-The port of the dense decoder path of ``repro/models/model.py``.  The
-parameters are a tree with the reference's keys and shapes::
+The port of the decoder-only path of ``repro/models/model.py``: dense,
+MoE, hybrid (Mamba + attention), SSM (RWKV6) and the VLM backbone (the
+vision frontend stubbed: precomputed embeddings and (3, B, S) M-RoPE
+positions).  The parameters are a tree with the reference's keys and
+shapes, e.g. for a dense model::
 
-    {"embedding": (V, D), "final_norm": (D,),
+    {"embedding": (V, D), "final_norm": (D,), ["lm_head": (D, V),]
      "stack": {"sub0": {"ffn": {"w_down", "w_gate", "w_up"},
                         "mixer": {"w_k", "w_o", "w_q", "w_v"},
                         "norm1", "norm2"}}}       # leaves (n_super, ...)
@@ -11,7 +14,7 @@ parameters are a tree with the reference's keys and shapes::
 held by :class:`Model` as ``nn.Parameter``s; :meth:`Model.leaves` lists
 them in the order ``jax.tree.flatten`` lists the reference's (sorted keys).
 The training loss is a sequence-chunked cross-entropy with float32
-logits through the tied head.
+logits through the (tied or untied) head, plus the MoE load-balance loss.
 
 Cached decode (:meth:`Model.init_decode` / :meth:`Model.decode_hidden` /
 :meth:`Model.decode_step`) keeps one index per batch row, so a fixed batch
@@ -19,15 +22,19 @@ and the serving engine's slots (each at its own position) run the same
 step.  The cache is a tree of tensors updated in place::
 
     {"index": (B,) int32,
-     "stack": {"sub0": {"k", "v": (n_super, B, KV, max_len, hd),
-                        "pos": (n_super, B, max_len) int32}}}
+     "stack": {"sub0": {"k", "v": (n_super, B, KV, size, hd),
+                        "pos": (n_super, B, size) int32}}}
 
+(a Mamba sublayer holds ``conv`` / ``state``, an RWKV6 one ``x_prev`` /
+``state`` / ``cm_x_prev``, every leaf ``(n_super, B, ...)``).
 :func:`cache_from_jax` / :func:`cache_to_jax` convert the reference's
 decode caches (its fixed-batch form with a scalar index, or the engine's
 slot-stacked form) to this one and back.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -102,7 +109,11 @@ class _Node(nn.Module):
 
 
 class Model(nn.Module):
-    """The dense decoder LM; ``forward(batch)`` returns ``(loss, metrics)``."""
+    """The decoder LM; ``forward(batch)`` returns ``(loss, metrics)``.
+
+    ``batch`` holds ``tokens`` (B, S), or ``embeds`` (B, S, D) (the VLM
+    stub frontend) with ``labels``; optional ``positions`` ((B, S), or
+    (3, B, S) for M-RoPE) and ``loss_mask``."""
 
     def __init__(self, cfg, params: dict):
         super().__init__()
@@ -120,32 +131,33 @@ class Model(nn.Module):
     def forward(self, batch: dict):
         cfg = self.cfg
         p = self.params()
-        tokens = batch["tokens"]
-        hidden = _final_hidden(p, tokens, cfg)
+        hidden, aux = _final_hidden(p, batch, cfg)
         labels = batch.get("labels")
         if labels is None:
-            labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+            labels = torch.nn.functional.pad(batch["tokens"][:, 1:], (0, 1))
         mask = batch.get("loss_mask")
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32,
                               device=labels.device)
         ce = _chunked_loss(hidden, _head_weights(p, cfg), labels, mask,
                            cap=cfg.final_logit_softcap)
-        return ce, {"loss": ce, "ce": ce}
+        total = ce + aux
+        return total, {"loss": total, "ce": ce, "aux": aux}
 
     @property
     def device(self) -> torch.device:
         return self.root.final_norm.device
 
     def head_weights(self) -> torch.Tensor:
-        """The (D, V) head matrix (the tied embedding's transpose)."""
+        """The (D, V) head matrix (the tied embedding's transpose, or the
+        untied ``lm_head``)."""
         return _head_weights(self.params(), self.cfg)
 
     @torch.no_grad()
     def logits(self, batch: dict) -> torch.Tensor:
-        """Full float32 logits (B, S, V) of ``batch["tokens"]`` (small use)."""
+        """Full float32 logits (B, S, V) of ``batch`` (small use)."""
         p = self.params()
-        hidden = _final_hidden(p, batch["tokens"], self.cfg)
+        hidden, _ = _final_hidden(p, batch, self.cfg)
         return softcap(head_dot(hidden, _head_weights(p, self.cfg)),
                        self.cfg.final_logit_softcap)
 
@@ -161,17 +173,24 @@ class Model(nn.Module):
         }
 
     @torch.no_grad()
-    def decode_hidden(self, cache: dict, tokens: torch.Tensor):
-        """tokens (B, 1): one cached decode step up to (and including) the
-        final norm, without the head.  Row ``b`` writes position
-        ``cache["index"][b]``; every index then advances by one.  The cache
-        is updated in place; returns ``(hidden (B, 1, D), cache)``."""
+    def decode_hidden(self, cache: dict, tokens: torch.Tensor, *,
+                      moe_per_row: bool = False):
+        """tokens (B, 1) (or (B, 1, D) embeds for the VLM stub): one cached
+        decode step up to (and including) the final norm, without the
+        head.  Row ``b`` writes position ``cache["index"][b]``; every index
+        then advances by one.  ``moe_per_row``: route each row's MoE token
+        as its own group (the serving engine's slots) instead of the batch
+        as one.  The cache is updated in place; returns ``(hidden (B, 1,
+        D), cache)``."""
         cfg = self.cfg
         p = self.params()
         index = cache["index"]
-        x = _embed_tokens(p, tokens, cfg)
+        if tokens.dim() == 3:
+            x = tokens.to(_dtype(cfg))
+        else:
+            x = _embed_tokens(p, tokens, cfg)
         x, _ = tfm.stack_decode(p["stack"], x, cache["stack"], index,
-                                cfg=cfg)
+                                cfg=cfg, moe_per_row=moe_per_row)
         x = rms_norm(x, p["final_norm"], cfg.norm_eps)
         index.add_(1)
         return x, cache
@@ -186,7 +205,11 @@ class Model(nn.Module):
 
 
 def _embed_tokens(params, tokens, cfg):
-    return params["embedding"][tokens].to(_dtype(cfg))
+    x = params["embedding"][tokens].to(_dtype(cfg))
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
 
 
 def _head_weights(params, cfg):
@@ -195,13 +218,20 @@ def _head_weights(params, cfg):
     return params["lm_head"]
 
 
-def _final_hidden(params, tokens, cfg):
-    """Embed -> stack -> final norm."""
-    B, S = tokens.shape
-    x = _embed_tokens(params, tokens, cfg)
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = tfm.stack_apply(params["stack"], x, cfg=cfg, positions=positions)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+def _final_hidden(params, batch, cfg):
+    """Embed (or take ``batch["embeds"]``) -> stack -> final norm.  Returns
+    ``(hidden, aux)``."""
+    if "embeds" in batch:  # VLM stub frontend: precomputed embeddings
+        x = batch["embeds"].to(_dtype(cfg))
+    else:
+        x = _embed_tokens(params, batch["tokens"], cfg)
+    B, S = x.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    x, aux = tfm.stack_apply(params["stack"], x, cfg=cfg,
+                             positions=positions)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def _chunked_loss(hidden, head_w, labels, mask, chunk=512, cap=None):
@@ -298,30 +328,45 @@ def params_to_numpy(params) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _batch_rows(stack: dict) -> int:
+    """The batch size of a cache's stack (any leaf but ``pos``)."""
+    for sub in stack.values():
+        for name, leaf in sub.items():
+            if name != "pos":
+                return leaf.shape[1]
+    raise ValueError("a decode cache with no batch leaf")
+
+
 def cache_from_jax(tree_of_numpy: dict, device=None) -> dict:
     """The port's decode cache from a reference decode cache (as numpy).
 
     Takes the reference's fixed-batch cache (``model.init_decode``: scalar
-    ``index``, ``pos`` (n_super, size) shared by the rows) or its engine's
-    slot-stacked cache (a leading slot axis over B=1 caches: ``index``
-    (slots,), ``k`` (slots, n_super, 1, KV, size, hd))."""
+    ``index``, leaves (n_super, B, ...), ``pos`` (n_super, size) shared by
+    the rows) or its engine's slot-stacked cache (a leading slot axis over
+    B=1 caches: ``index`` (slots,), leaves (slots, n_super, 1, ...), ``pos``
+    (slots, n_super, size))."""
     device = resolve_device(device)
     index = np.asarray(tree_of_numpy["index"])
-    stack = {}
-    for name, sub in tree_of_numpy["stack"].items():
-        k, v, pos = (np.asarray(sub[n]) for n in ("k", "v", "pos"))
-        if index.ndim == 0:
-            B = k.shape[1]
-            pos = np.broadcast_to(pos[:, None], (pos.shape[0], B, pos.shape[1]))
-        else:
-            k, v = (np.swapaxes(a[:, :, 0], 0, 1) for a in (k, v))
-            pos = np.swapaxes(pos, 0, 1)
-        stack[name] = {n: _tensor_from_numpy(a).to(device)
-                       for n, a in (("k", k), ("v", v), ("pos", pos))}
-    if index.ndim == 0:
-        index = np.full((next(iter(stack.values()))["k"].shape[1],), index)
+    fixed = index.ndim == 0
+    stack = {
+        name: {n: np.asarray(a) for n, a in sub.items()}
+        for name, sub in tree_of_numpy["stack"].items()
+    }
+    rows = _batch_rows(stack) if fixed else None
+    out = {}
+    for name, sub in stack.items():
+        leaves = {}
+        for n, a in sub.items():
+            if fixed and n == "pos":
+                a = np.broadcast_to(a[:, None], (a.shape[0], rows, a.shape[1]))
+            elif not fixed:
+                a = np.swapaxes(a if n == "pos" else a[:, :, 0], 0, 1)
+            leaves[n] = _tensor_from_numpy(a).to(device)
+        out[name] = leaves
+    if fixed:
+        index = np.full((rows,), index)
     return {"index": _tensor_from_numpy(index.astype(np.int32)).to(device),
-            "stack": stack}
+            "stack": out}
 
 
 def cache_to_jax(cache: dict, *, slot_stacked: bool = False) -> dict:
@@ -329,18 +374,22 @@ def cache_to_jax(cache: dict, *, slot_stacked: bool = False) -> dict:
     The fixed-batch form needs every row at the same index."""
     to_np = lambda t: params_to_numpy({"t": t})["t"]
     index = to_np(cache["index"])
+    if not slot_stacked and not (index == index[0]).all():
+        raise ValueError("the fixed-batch form needs one index for every "
+                         "row")
     stack = {}
     for name, sub in cache["stack"].items():
-        k, v, pos = (to_np(sub[n]) for n in ("k", "v", "pos"))
-        if slot_stacked:
-            k, v = (np.swapaxes(a, 0, 1)[:, :, None] for a in (k, v))
-            pos = np.swapaxes(pos, 0, 1)
-        else:
-            if not (index == index[0]).all():
-                raise ValueError("the fixed-batch form needs one index for "
-                                 "every row")
-            pos = pos[:, 0]
-        stack[name] = {"k": k, "v": v, "pos": pos}
+        leaves = {}
+        for n, t in sub.items():
+            a = to_np(t)
+            if slot_stacked:
+                a = np.swapaxes(a, 0, 1)
+                if n != "pos":
+                    a = a[:, :, None]
+            elif n == "pos":
+                a = a[:, 0]
+            leaves[n] = a
+        stack[name] = leaves
     if not slot_stacked:
         index = index[0]
     return {"index": index, "stack": stack}

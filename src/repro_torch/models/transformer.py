@@ -1,12 +1,23 @@
 """Decoder stack: stacked per-layer parameters applied by a layer loop.
 
-The port of the dense path of ``repro/models/transformer.py``.  Every
-sublayer's parameters keep the reference's leading ``n_super`` dimension
-(``{"sub0": {...}}`` with leaves ``(n_super, ...)``), so the gradient
-leaves have the reference's shapes; the reference's ``lax.scan`` over that
-dimension becomes a loop over the layer index.  The decode cache keeps the
-same leading ``n_super`` dimension (:func:`init_stack_cache`), and
-:func:`stack_decode` updates it in place, layer by layer.
+The port of ``repro/models/transformer.py`` for decoder-only stacks.  A
+model is ``num_super_layers`` repetitions of the config's sublayer
+*pattern*; every sublayer's parameters keep the reference's leading
+``n_super`` dimension (``{"sub<i>": {...}}`` with leaves ``(n_super,
+...)``), so the gradient leaves have the reference's shapes; the
+reference's ``lax.scan`` over that dimension becomes a loop over the layer
+index.
+
+Mixer kinds: "attn" (global), "attn_local" (sliding window), "mamba",
+"rwkv6".  FFN kinds: "dense" GLU, "moe", and the implicit RWKV
+channel-mix when the mixer is rwkv6.  ``sandwich_norm`` (gemma2) adds a
+norm after the mixer and after the FFN.
+
+The decode cache keeps the same leading ``n_super`` dimension
+(:func:`init_stack_cache`), one entry per sublayer: ``{"k", "v", "pos"}``
+for attention, ``{"conv", "state"}`` for Mamba, ``{"x_prev", "state",
+"cm_x_prev"}`` for RWKV6; :func:`stack_decode` updates it in place, layer
+by layer.
 """
 
 from __future__ import annotations
@@ -14,49 +25,99 @@ from __future__ import annotations
 import torch
 
 from . import attention as attn_mod
+from . import mamba as mamba_mod
+from . import moe as moe_mod
+from . import rwkv as rwkv_mod
 from .layers import glu_mlp, init_glu_mlp, rms_norm
 from .. import tree as tree_util
 
 __all__ = ["init_stack", "stack_apply", "init_stack_cache", "stack_decode"]
 
 
+def _window(cfg, sub):
+    return cfg.sliding_window if sub.mixer == "attn_local" else None
+
+
+def _init_sublayer(sub, cfg, dtype, *, lead, generator, device):
+    kw = dict(lead=lead, generator=generator, device=device)
+    norm = lambda: torch.zeros(lead + (cfg.d_model,), dtype=torch.float32,
+                               device=device)
+    p = {"norm1": norm()}
+    if sub.mixer in ("attn", "attn_local"):
+        p["mixer"] = attn_mod.init_attention(cfg, dtype, **kw)
+    elif sub.mixer == "mamba":
+        p["mixer"] = mamba_mod.init_mamba(cfg, dtype, **kw)
+    elif sub.mixer == "rwkv6":
+        p["mixer"] = rwkv_mod.init_rwkv(cfg, dtype, **kw)
+    if sub.mixer == "rwkv6":
+        p["ffn"] = rwkv_mod.init_rwkv_cm(cfg, dtype, **kw)
+    elif sub.ffn == "dense":
+        p["ffn"] = init_glu_mlp(cfg.d_model, cfg.d_ff, dtype, **kw)
+    elif sub.ffn == "moe":
+        p["ffn"] = moe_mod.init_moe(cfg, dtype, **kw)
+    if sub.ffn != "none" or sub.mixer == "rwkv6":
+        p["norm2"] = norm()
+    if cfg.sandwich_norm:
+        p["norm1_post"] = norm()
+        p["norm2_post"] = norm()
+    return p
+
+
 def init_stack(cfg, dtype, *, generator, device):
     """Stacked params: {"sub<i>": tree with leading n_super dim}."""
-    n_super = cfg.num_super_layers
-    lead = (n_super,)
-    zeros = lambda: torch.zeros(lead + (cfg.d_model,), dtype=torch.float32,
-                                device=device)
-    out = {}
-    for i, _ in enumerate(cfg.pattern):
-        out[f"sub{i}"] = {
-            "norm1": zeros(),
-            "mixer": attn_mod.init_attention(
-                cfg, dtype, lead=lead, generator=generator, device=device
-            ),
-            "ffn": init_glu_mlp(
-                cfg.d_model, cfg.d_ff, dtype, lead=lead,
-                generator=generator, device=device,
-            ),
-            "norm2": zeros(),
-        }
-    return out
+    lead = (cfg.num_super_layers,)
+    return {
+        f"sub{i}": _init_sublayer(sub, cfg, dtype, lead=lead,
+                                  generator=generator, device=device)
+        for i, sub in enumerate(cfg.pattern)
+    }
 
 
-def _sublayer_full(p, x, *, cfg, positions):
+def _post(p, h, name, cfg):
+    if cfg.sandwich_norm:
+        return rms_norm(h, p[name], cfg.norm_eps)
+    return h
+
+
+def _sublayer_full(p, x, sub, *, cfg, positions):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    h = attn_mod.attention_full(p["mixer"], h, cfg=cfg, positions=positions)
-    x = x + h
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + glu_mlp(p["ffn"], h, cfg.act)
+    if sub.mixer in ("attn", "attn_local"):
+        h = attn_mod.attention_full(p["mixer"], h, cfg=cfg,
+                                    positions=positions,
+                                    window=_window(cfg, sub))
+    elif sub.mixer == "mamba":
+        h = mamba_mod.mamba_full(p["mixer"], h, cfg=cfg)
+    elif sub.mixer == "rwkv6":
+        h = rwkv_mod.rwkv_full(p["mixer"], h, cfg=cfg)
+    else:
+        h = torch.zeros_like(h)
+    x = x + _post(p, h, "norm1_post", cfg)
+
+    aux = None
+    if "ffn" in p:
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        if sub.mixer == "rwkv6":
+            h = rwkv_mod.rwkv_cm_full(p["ffn"], h)
+        elif sub.ffn == "moe":
+            h, aux = moe_mod.moe_apply(p["ffn"], h, cfg=cfg)
+        else:
+            h = glu_mlp(p["ffn"], h, cfg.act)
+        x = x + _post(p, h, "norm2_post", cfg)
+    return x, aux
 
 
 def stack_apply(stack_params, x: torch.Tensor, *, cfg, positions):
-    """Run the stack, layer by layer."""
+    """Run the stack, layer by layer.  Returns ``(hidden, aux)``: the MoE
+    load-balance losses summed over sublayers and layers (float32 zero
+    without MoE), as the reference's scan carries them."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(cfg.num_super_layers):
-        for i, _ in enumerate(cfg.pattern):
+        for i, sub in enumerate(cfg.pattern):
             p = tree_util.tree_map(lambda t: t[layer], stack_params[f"sub{i}"])
-            x = _sublayer_full(p, x, cfg=cfg, positions=positions)
-    return x
+            x, a = _sublayer_full(p, x, sub, cfg=cfg, positions=positions)
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -65,31 +126,60 @@ def stack_apply(stack_params, x: torch.Tensor, *, cfg, positions):
 
 
 def init_stack_cache(cfg, batch: int, max_len: int, dtype, *, device):
-    """Cache tree mirroring the stack: ``{"sub<i>": {"k", "v", "pos"}}``
-    with leaves ``(n_super, batch, ...)``."""
-    lead = (cfg.num_super_layers,)
-    return {
-        f"sub{i}": attn_mod.init_cache(cfg, batch, max_len, window=None,
-                                       dtype=dtype, device=device,
-                                       lead=lead)
-        for i, _ in enumerate(cfg.pattern)
-    }
+    """Cache tree mirroring the stack: ``{"sub<i>": {...}}`` with leaves
+    ``(n_super, batch, ...)``."""
+    kw = dict(dtype=dtype, device=device, lead=(cfg.num_super_layers,))
+
+    def one(sub):
+        if sub.mixer in ("attn", "attn_local"):
+            return attn_mod.init_cache(cfg, batch, max_len,
+                                       window=_window(cfg, sub), **kw)
+        if sub.mixer == "mamba":
+            return mamba_mod.init_mamba_cache(cfg, batch, **kw)
+        if sub.mixer == "rwkv6":
+            return rwkv_mod.init_rwkv_cache(cfg, batch, **kw)
+        return {}
+
+    return {f"sub{i}": one(sub) for i, sub in enumerate(cfg.pattern)}
 
 
-def _sublayer_decode(p, x, cache, *, cfg, index):
+def _sublayer_decode(p, x, cache, sub, *, cfg, index, moe_groups):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    h, _ = attn_mod.attention_decode(p["mixer"], h, cache, index, cfg=cfg)
-    x = x + h
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + glu_mlp(p["ffn"], h, cfg.act)
+    if sub.mixer in ("attn", "attn_local"):
+        h, _ = attn_mod.attention_decode(p["mixer"], h, cache, index,
+                                         cfg=cfg, window=_window(cfg, sub))
+    elif sub.mixer == "mamba":
+        h, _ = mamba_mod.mamba_decode(p["mixer"], h, cache, cfg=cfg)
+    elif sub.mixer == "rwkv6":
+        h, _ = rwkv_mod.rwkv_decode(p["mixer"], h, cache, cfg=cfg)
+    else:
+        h = torch.zeros_like(h)
+    x = x + _post(p, h, "norm1_post", cfg)
+
+    if "ffn" in p:
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        if sub.mixer == "rwkv6":
+            h = rwkv_mod.rwkv_cm_decode(p["ffn"], h, cache)
+        elif sub.ffn == "moe":
+            # decode drops the aux loss, as the reference does
+            h, _ = moe_mod.moe_apply(p["ffn"], h, cfg=cfg, groups=moe_groups)
+        else:
+            h = glu_mlp(p["ffn"], h, cfg.act)
+        x = x + _post(p, h, "norm2_post", cfg)
+    return x
 
 
-def stack_decode(stack_params, x: torch.Tensor, cache, index, *, cfg):
-    """One-token decode through the stack; ``index`` (B,).  Updates
+def stack_decode(stack_params, x: torch.Tensor, cache, index, *, cfg,
+                 moe_per_row: bool = False):
+    """One-token decode through the stack; ``index`` (B,).  With
+    ``moe_per_row`` every row routes its MoE tokens as its own group (the
+    serving engine's slots); otherwise the batch is one group.  Updates
     ``cache`` in place and returns ``(x, cache)``."""
+    moe_groups = x.shape[0] if moe_per_row else 1
     for layer in range(cfg.num_super_layers):
-        for i, _ in enumerate(cfg.pattern):
+        for i, sub in enumerate(cfg.pattern):
             p = tree_util.tree_map(lambda t: t[layer], stack_params[f"sub{i}"])
             c = {k: t[layer] for k, t in cache[f"sub{i}"].items()}
-            x = _sublayer_decode(p, x, c, cfg=cfg, index=index)
+            x = _sublayer_decode(p, x, c, sub, cfg=cfg, index=index,
+                                 moe_groups=moe_groups)
     return x, cache

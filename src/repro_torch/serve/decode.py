@@ -188,7 +188,8 @@ def make_decode_slice(model, ctx: comm.CommContext | None, *,
         steps = 0
         while steps < slice_len:
             out[:, steps] = tok[:, 0]
-            hidden, cache = model.decode_hidden(cache, tok[own])
+            hidden, cache = model.decode_hidden(cache, tok[own],
+                                                moe_per_row=True)
             nxt = head(hidden, all_rows=True)
             if forced:
                 for row, queue in forced.items():

@@ -7,7 +7,9 @@ replica's decode state and drives it with the host-side
 * **slot-stacked cache** — one decode cache whose batch rows are the
   slots, each row at its own index (the model's per-row decode), so
   membership changes are per-row copies and the decode batch never
-  changes shape;
+  changes shape.  Every slot row routes its MoE token as its own group
+  (``moe_per_row``), as the reference's engine does by vmapping a B=1
+  decode: a row's tokens never depend on its neighbours;
 * **prefill** — each admitted request prefills alone (B=1) by feeding its
   prompt through the cached decode step, and its B=1 cache is copied into
   its slot row.  The reference pads the prompt to its bucket and keeps
@@ -43,6 +45,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import tree
 from ..core import comm
 from ..device import require_on
 from . import decode as _decode
@@ -155,9 +158,10 @@ class ServeEngine:
         if slot in self._rows:
             row = slot - self._rows.start
             self._cache["index"][row] = cache_b1["index"][0]
-            for sub, leaves in self._cache["stack"].items():
-                for name, full in leaves.items():
-                    full[:, row] = cache_b1["stack"][sub][name][:, 0]
+            # every stack leaf is (n_super, rows, ...), whatever the mixer
+            for full, one in zip(tree.leaves(self._cache["stack"]),
+                                 tree.leaves(cache_b1["stack"])):
+                full[:, row] = one[:, 0]
         self._tok[slot, 0] = tok0
 
     # -- request lifecycle ---------------------------------------------------

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.configs import MINICPM_2B, OptimizerConfig, reduced
+from repro_torch.configs import ARCHS, MINICPM_2B, OptimizerConfig, reduced
 from repro_torch.core import CommPolicy, Topology
 from repro_torch.launch import (
     init_train_state, make_dp_train_step, make_prefill_step, make_serve_step,
@@ -72,6 +72,20 @@ def test_guard_sees_the_serving_modules():
                 "checkpoint/manager.py", "analysis/protocol_check.py",
                 "launch/serve.py"):
         assert port / rel in PORT_FILES, rel
+
+
+def test_guard_sees_the_model_family_modules():
+    models = ROOT / "src" / "repro_torch" / "models"
+    for name in ("moe", "mamba", "rwkv", "attention", "transformer",
+                 "layers", "model"):
+        assert models / f"{name}.py" in PORT_FILES, name
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_launch_serve_runs_every_arch_on_cpu(arch, capsys):
+    launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "4", "--gen", "3"])
+    assert "generated (2, 3) tokens" in capsys.readouterr().out
 
 
 def test_default_device_is_cuda(monkeypatch):
