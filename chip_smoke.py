@@ -141,6 +141,33 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    (finite losses, transport launches = buckets x steps; deepseek's
    kernel route bitwise equal to its plain route).
 
+14. ``trainer``: the training driver, ``launch.train.build_training``, on
+   minicpm-2b at its published widths and all 40 layers (bf16, remat
+   "full", the reference's default): global batch 8 x 512 in microbatches
+   of 2 (``make_train_step`` at n_micro 4, float32 accumulation), 6 steps
+   (ms per step: median after the first; tokens/s; peak memory), one more
+   step under ``torch.profiler`` (device busy, GEMM share, idle share,
+   launches; the table goes to ``chiprun_out/profile_trainer_step.txt``);
+   remat none / dots / full and bf16_bwd on / off at 2 steps each (the
+   second step's ms, peak memory, the first losses equal within 2e-2);
+   then the resume check at 4 layers (MINICPM_2B_4L) under
+   ``torch.use_deterministic_algorithms`` (``CUBLAS_WORKSPACE_CONFIG`` set
+   before CUDA starts): 6 steps straight through against 4 steps with a
+   checkpoint after step 3 (keep 1) and a fresh loop on the same
+   directory run to 6; losses, parameters and moments bitwise equal; the
+   checkpoint's bytes and write seconds; a temporary directory, removed.
+   Launch counters zeroed before each run and read after: no kernel of
+   the repository runs on this path (0).
+15. ``dp_ef``: the reference's ``check_dp_training_ef_convergence`` at
+   1 x 1 on the card: reduced minicpm-2b in float32 from the port's
+   seeded parameters (drawn on the CPU), ``SyntheticLM(seq 32, batch 16,
+   seed 3)``, AdamW at constant lr 1e-2, 120 steps each of uncompressed,
+   int4 + EF and raw int4 ``nap`` sync through ``make_dp_train_step``;
+   the transport on the CUDA kernels (launches = buckets x steps per
+   compressed run, counters zeroed before and read after each run) and
+   the reference's five criteria held (they hold on the CPU at 1 x 1,
+   ``tests/test_torch_dp_checks.py``).
+
 Then a line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits non-zero
 without one, or without the repository's ``src/`` beside this file.
@@ -155,9 +182,11 @@ import json
 import math
 import re
 import shutil
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -167,6 +196,9 @@ KERNEL_SRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "transport.cu"
 if not KERNEL_SRC.is_file():
     sys.exit("chip_smoke.py: src/repro_torch not found beside this script")
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS's deterministic workspace, for phase trainer's resume check under
+# torch.use_deterministic_algorithms; set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -2010,6 +2042,297 @@ def phase_families(smi, device="cuda") -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# the training driver (phases trainer and dp_ef)
+# ---------------------------------------------------------------------------
+
+# minicpm-2b at its published widths and all 40 layers (MINICPM_2B, bf16,
+# remat "full", the reference's default) through launch.train: global
+# batch 8 x 512 in microbatches of 2 (n_micro 4), 6 steps, no checkpoint
+# in the timed run; the levers at 2 steps each; the resume check at 4
+# layers (a 40-layer checkpoint is about 38 GB on disk).
+TRAINER = dict(batch=8, seq=512, microbatch=2, steps=6, lever_steps=2,
+               resume_steps=6, resume_stop=4, resume_every=3)
+# the reference's check_dp_training_ef_convergence at 1 x 1
+# (tests/_multidevice_checks.py:902-976): reduced minicpm-2b in float32,
+# SyntheticLM(seq 32, global batch 16, seed 3), AdamW at constant lr 1e-2,
+# 120 steps of each transport, all nap
+DP_EF = dict(seq=32, batch=16, seed=3, steps=120, lr=1e-2)
+DP_EF_RUNS = (
+    ("base", dict(algorithm="nap", mean=True)),
+    ("ef4", dict(algorithm="nap", mean=True, compress_bits=4,
+                 error_feedback=True)),
+    ("raw4", dict(algorithm="nap", mean=True, compress_bits=4)),
+)
+
+
+def _all_launches() -> dict:
+    return {**dict(transport.LAUNCHES), **ops.launch_counts()}
+
+
+def _reset_launches() -> None:
+    transport.reset_launch_counts()
+    ops.reset_launch_counts()
+
+
+def _train_cfg(steps, **kw):
+    from repro_torch.configs import TrainConfig
+
+    base = dict(steps=steps, seq_len=TRAINER["seq"],
+                global_batch=TRAINER["batch"],
+                microbatch=TRAINER["microbatch"], seed=SEED,
+                checkpoint_every=0, optimizer=OPT)
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def _trainer_run(cfg, steps, ckpt_dir, device="cuda", **kw) -> dict:
+    """``steps`` steps of ``launch.train.build_training``: per-step host
+    time (each step ends in the loss's copy to the host, after the AdamW
+    update), losses, peak memory and every kernel's launches."""
+    from repro_torch.launch import build_training
+
+    _free()
+    _reset_launches()
+    loop = build_training(cfg, _train_cfg(steps, **kw), ckpt_dir=ckpt_dir,
+                          device=device)
+    start = loop.start_step
+    loop.run(steps)
+    launches = _all_launches()
+    log = loop.metrics_log
+    losses = [m["loss"] for m in log]
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"{cfg.name}: non-finite loss {losses}")
+    times = [m["time_s"] for m in log]
+    steady = times[1:] or times
+    ms = statistics.median(steady) * 1e3
+    return {"loop": loop, "start_step": start, "losses": losses,
+            "step_ms": [t * 1e3 for t in times],
+            "ms_per_step": ms,
+            "tokens_per_s": TRAINER["batch"] * TRAINER["seq"] / (ms / 1e3),
+            "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches, "stragglers": len(loop.monitor.events)}
+
+
+def _summary(run) -> dict:
+    return {k: v for k, v in run.items() if k != "loop"}
+
+
+def _resume_check(cfg, root: Path, device="cuda") -> dict:
+    """6 steps straight through against 4 steps with a checkpoint after
+    step 3 (keep 1), resumed by a fresh loop to 6: losses, parameters and
+    moments bitwise equal, under deterministic algorithms."""
+    every, stop, end = (TRAINER["resume_every"], TRAINER["resume_stop"],
+                        TRAINER["resume_steps"])
+    free_bytes = shutil.disk_usage(root).free
+    straight = _trainer_run(cfg, end, root / "straight", device)
+    first = _trainer_run(cfg, stop, root / "resume", device,
+                         checkpoint_every=every, keep_checkpoints=1)
+    writes = list(first["loop"].ckpt.writes)
+    first_losses = first["losses"]
+    del first
+    _free()
+    resumed = _trainer_run(cfg, end, root / "resume", device,
+                           checkpoint_every=every, keep_checkpoints=1)
+    loop, ref = resumed["loop"], straight["loop"]
+    writes += loop.ckpt.writes
+    start = resumed["start_step"]  # after the checkpoint of step every - 1
+    losses = first_losses[:start] + resumed["losses"]
+    st, rs = ref.state, loop.state
+    params_equal = all(torch.equal(a, b) for a, b in
+                       zip(st["model"].leaves(), rs["model"].leaves()))
+    moments_equal = all(torch.equal(a, b) for a, b in
+                        zip(st["opt"].mu + st["opt"].nu,
+                            rs["opt"].mu + rs["opt"].nu))
+    out = {"config": cfg.name, "straight_losses": straight["losses"],
+           "resumed_losses": losses, "start_step_of_fresh_loop": start,
+           "losses_bitwise_equal": (start == every
+                                    and losses == straight["losses"]),
+           "params_bitwise_equal": params_equal,
+           "moments_bitwise_equal": moments_equal,
+           "opt_step": [st["opt"].step, rs["opt"].step],
+           "checkpoint_writes": writes,
+           "disk_free_bytes_before": free_bytes}
+    del straight, resumed, loop, ref, st, rs
+    _free()
+    return out
+
+
+def _trainer_profile(loop) -> dict:
+    """One more step of the loop under ``torch.profiler``: device busy
+    time by kernel class (GEMM / other), the idle share of the step's wall
+    time and the number of kernel launches.  The table goes to
+    ``chiprun_out/profile_trainer_step.txt``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.run(loop.start_step + 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    rows = [(e.key, _device_us(e) / 1e3, e.count) for e in events
+            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    gemm = sum(ms for name, ms, _ in rows if any(
+        k in name.lower() for k in ("gemm", "cutlass", "xmma", "cublas")))
+    busy = sum(ms for _, ms, _ in rows)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "profile_trainer_step.txt").write_text(
+        events.table(sort_by="self_cuda_time_total", row_limit=60))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "gemm_ms": gemm,
+            "idle_share": 1 - busy / wall_ms if busy else None,
+            "kernel_launches": sum(c for _, _, c in rows),
+            "top_kernels": [[n[:80], ms, c] for n, ms, c in
+                            sorted(rows, key=lambda r: -r[1])[:10]]}
+
+
+def phase_trainer(smi, cfg=MINICPM_2B, resume_cfg=MINICPM_2B_4L,
+                  device="cuda") -> dict:
+    """minicpm-2b at all 40 layers through ``launch.train.build_training``
+    (bf16, remat full, n_micro 4): ms per step, tokens/s, peak memory,
+    one more step profiled; remat none / dots / full and bf16_bwd on / off
+    at 2 steps each; the resume check at 4 layers.  No kernel of the repository runs on this
+    path (the models call none): every count is read and must be 0.
+    (``cfg`` / ``resume_cfg`` / ``device`` are for a CPU rehearsal.)"""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+        tmp = Path(tmp)
+        main_run = _trainer_run(cfg, TRAINER["steps"], tmp / "main", device)
+        launches = main_run["launches"]
+        main = _summary(main_run)
+        if device != "cpu":
+            main["profile"] = _trainer_profile(main_run["loop"])
+        del main_run
+        levers = {"remat": {}, "bf16_bwd": {}}
+        n = TRAINER["lever_steps"]
+        for remat in ("none", "dots", "full"):
+            run = _trainer_run(dataclasses.replace(cfg, remat=remat), n,
+                               tmp / f"remat_{remat}", device)
+            levers["remat"][remat] = {
+                "ms_per_step": run["step_ms"][-1],
+                "peak_device_memory_bytes": run["peak_device_memory_bytes"],
+                "losses": run["losses"]}
+            for k, c in run["launches"].items():
+                launches[k] += c
+            del run
+        for on in (True, False):
+            run = _trainer_run(dataclasses.replace(cfg, bf16_bwd=on), n,
+                               tmp / f"bf16_bwd_{on}", device)
+            levers["bf16_bwd"]["on" if on else "off"] = {
+                "ms_per_step": run["step_ms"][-1],
+                "peak_device_memory_bytes": run["peak_device_memory_bytes"],
+                "losses": run["losses"]}
+            for k, c in run["launches"].items():
+                launches[k] += c
+            del run
+        _free()
+        first_on = levers["bf16_bwd"]["on"]["losses"][0]
+        first_off = levers["bf16_bwd"]["off"]["losses"][0]
+        levers["bf16_bwd"]["first_loss_rel_diff"] = (
+            abs(first_on - first_off) / abs(first_off))
+        torch.use_deterministic_algorithms(True)
+        try:
+            resume = _resume_check(resume_cfg, tmp, device)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    emit({"phase": "trainer", "config": cfg.name, "layers": cfg.num_layers,
+          "params": cfg.param_count(), "dtype": cfg.dtype,
+          "remat": cfg.remat, "batch": [TRAINER["batch"], TRAINER["seq"]],
+          "microbatch": TRAINER["microbatch"], "nvidia_smi": smi,
+          "main": main, "levers": levers, "launches": launches,
+          "resume": resume, "phase_s": time.perf_counter() - t_phase})
+    if any(launches.values()):
+        raise AssertionError(f"a kernel ran on the trainer's path: "
+                             f"{launches}")
+    if levers["bf16_bwd"]["first_loss_rel_diff"] > 2e-2:
+        raise AssertionError("bf16_bwd changed the first loss by more than "
+                             "2e-2")
+    if not (resume["losses_bitwise_equal"] and resume["params_bitwise_equal"]
+            and resume["moments_bitwise_equal"]):
+        raise AssertionError("the resumed run differs from the straight run")
+    return launches
+
+
+def _ef_criteria(base, ef4, raw4) -> dict:
+    """The reference's five criteria of the convergence check, with the
+    numbers they compare."""
+    tail = lambda ls: float(np.mean(ls[-10:]))  # noqa: E731
+    base, ef4, raw4 = (np.asarray(x) for x in (base, ef4, raw4))
+    out = {"base_tail": tail(base), "ef4_tail": tail(ef4),
+           "raw4_tail": tail(raw4),
+           "gap_ef": abs(tail(ef4) - tail(base)),
+           "gap_raw": abs(tail(raw4) - tail(base)),
+           "dev_ef": float(np.mean(np.abs(ef4 - base))),
+           "dev_raw": float(np.mean(np.abs(raw4 - base)))}
+    out["criteria"] = {
+        "finite": bool(np.all(np.isfinite(ef4))),
+        "learned": bool(out["base_tail"] < base[0] - 0.5),
+        "gap_ef": out["gap_ef"] < 0.15 * out["base_tail"],
+        "gap_raw": out["gap_raw"] > out["gap_ef"],
+        "dev_raw": out["dev_raw"] > 1.4 * out["dev_ef"],
+    }
+    return out
+
+
+def phase_dp_ef(smi, device="cuda") -> dict:
+    """The reference's DP-training convergence check at 1 x 1 on the card:
+    three 120-step trajectories (uncompressed, int4 + EF, raw int4) from
+    the port's seeded parameters (drawn on the CPU, as the CPU test draws
+    them), the transport on the CUDA kernels; the five criteria held (they
+    hold on the CPU at 1 x 1, tests/test_torch_dp_checks.py).  Returns the
+    transport kernels' launches on this path: buckets x steps for each
+    compressed run, none for the uncompressed one."""
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    cfg = reduced(MINICPM_2B)
+    params = init_params(cfg, generator=torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    data = SyntheticLM(cfg.vocab_size, DP_EF["seq"], DP_EF["batch"],
+                       seed=DP_EF["seed"])
+    opt = OptimizerConfig(lr=DP_EF["lr"], schedule="constant",
+                          warmup_steps=1)
+    topo = mesh_topology(1, 1)
+    runs, counts, buckets = {}, {}, {}
+    launches = {k: 0 for k in transport.LAUNCHES}
+    for name, kw in DP_EF_RUNS:
+        policy = CommPolicy(**kw)
+        step = make_dp_train_step(cfg, opt, topo, policy, device=device)
+        state = init_train_state(cfg, opt, policy, params=params,
+                                 device=device)
+        batches = [data.batch(s, device) for s in range(DP_EF["steps"])]
+        _reset_launches()
+        losses = []
+        for batch in batches:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        counts[name] = _all_launches()
+        buckets[name] = step.plan.num_buckets
+        want = (step.plan.num_buckets * DP_EF["steps"]
+                if kw.get("compress_bits") and device != "cpu" else 0)
+        got = {k: counts[name][k] for k in transport.LAUNCHES}
+        if any(c != want for c in got.values()) or any(
+                counts[name][k] for k in ops.launch_counts()):
+            raise AssertionError(f"dp_ef {name}: launches {counts[name]} != "
+                                 f"{want} of each transport kernel")
+        for k, c in got.items():
+            launches[k] += c
+        runs[name] = losses
+        del state, step
+    res = _ef_criteria(runs["base"], runs["ef4"], runs["raw4"])
+    emit({"phase": "dp_ef", "config": cfg.name, "grid": [1, 1],
+          "nvidia_smi": smi, "steps": DP_EF["steps"], **res,
+          "trajectories": runs, "buckets": buckets, "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    if not all(res["criteria"].values()):
+        raise AssertionError(f"dp_ef: criteria {res['criteria']}")
+    return launches
+
+
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
@@ -2049,6 +2372,8 @@ def main() -> None:
     phase_collectives_world1()
     phase_serve(rates, smi)
     family_launches = phase_families(smi)
+    trainer_launches = phase_trainer(smi)
+    dp_ef_launches = phase_dp_ef(smi)
     t4 = k["timing"][4]
     replaces = {"quantize_pack": "src/repro/kernels/transport.py:158",
                 "unpack_dequantize": "src/repro/kernels/transport.py:222"}
@@ -2060,6 +2385,10 @@ def main() -> None:
          # the families' train steps (buckets x steps) and serving (0)
          "launches_families_train": family_launches[name],
          "launches_families_serve": 0,
+         # the reference's convergence check at 1 x 1 (phase dp_ef) and the
+         # training driver (phase trainer)
+         "launches_dp_ef": dp_ef_launches[name],
+         "launches_trainer": trainer_launches[name],
          "max_abs_err": k["max_abs_err"],
          "ms": t4[name][0], "plain_ms": t4[name][1],
          "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
@@ -2090,6 +2419,7 @@ def main() -> None:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": where, "launches": full["launches"][name],
             "launches_families_serve": 0,
+            "launches_trainer": trainer_launches[name],
             "max_abs_err": max([ops_err[name]]
                                + [c["max_abs_err"] for c in rows]),
             # one launch per case of the main path: times are summed

@@ -1,16 +1,21 @@
 """Checkpointing: atomic, async, keep-k, restore onto any device.
 
-The port of ``repro/checkpoint/manager.py`` for trees of tensors (dicts,
-lists and tuples of ``torch.Tensor``).  Layout: ``<dir>/step_<N>/state.npz``
-(flat path-keyed numpy arrays; a bf16 leaf is stored as its 16-bit
-pattern) + ``meta.json``.  Writes go to ``step_<N>.tmp`` and are renamed
-only when complete, so a crashed save can never shadow a good checkpoint
-(the restart path of :mod:`repro_torch.runtime.fault` relies on this).
+The port of ``repro/checkpoint/manager.py`` for trees of tensors: dicts,
+lists, tuples and named tuples whose leaves are ``torch.Tensor``s, Python
+ints (an optimizer's step count) or ``nn.Module``s (their parameters, by
+name).  Layout: ``<dir>/step_<N>/state.npz`` (flat path-keyed numpy
+arrays; a bf16 leaf is stored as its 16-bit pattern) + ``meta.json``.
+Writes go to ``step_<N>.tmp`` and are renamed only when complete, so a
+crashed save can never shadow a good checkpoint (the restart path of
+:mod:`repro_torch.runtime.fault` relies on this).
 
 Restore takes a *template* tree (the live state's structure, shapes,
 dtypes and devices): each array is loaded on the host, checked against its
-template leaf and copied to that leaf's device.  Async mode copies every
-leaf to the host at ``save`` (the snapshot) and writes on a worker thread.
+template leaf and copied into that leaf in place, so a restored state is
+the template's own tensors (and a module keeps its parameters); only an
+int leaf is replaced.  Async mode copies every leaf to the host at
+``save`` (the snapshot) and writes on a worker thread.  ``writes`` records
+each finished write: its step, bytes on disk and seconds.
 """
 
 from __future__ import annotations
@@ -24,56 +29,97 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-from .. import tree as tree_util
+from torch import nn
 
 __all__ = ["CheckpointManager"]
 
 _SEP = "//"
 
 
+def _key(prefix: str, k) -> str:
+    return f"{prefix}{_SEP}{k}" if prefix else str(k)
+
+
+def _items(node):
+    """The children of a container node as ``(name, child)``, or None for a
+    leaf."""
+    if isinstance(node, dict):
+        return list(node.items())
+    if isinstance(node, (list, tuple)):
+        return [(str(i), v) for i, v in enumerate(node)]
+    if isinstance(node, nn.Module):
+        return list(node.named_parameters())
+    return None
+
+
 def _flatten(tree, prefix=""):
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = ((str(i), v) for i, v in enumerate(tree))
-    else:
+    items = _items(tree)
+    if items is None:
         return {prefix: tree}
     out = {}
     for k, v in items:
-        key = f"{prefix}{_SEP}{k}" if prefix else str(k)
-        out.update(_flatten(v, key))
+        out.update(_flatten(v, _key(prefix, k)))
     return out
 
 
-def _to_host(leaf: torch.Tensor) -> np.ndarray:
+def _to_host(leaf) -> np.ndarray:
     """A numpy snapshot of a leaf (bf16 as its 16-bit pattern)."""
+    if isinstance(leaf, int):
+        return np.asarray(leaf, dtype=np.int64)
     t = leaf.detach()
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
     return t.cpu().numpy().copy()
 
 
-def _from_host(arr: np.ndarray, tmpl: torch.Tensor, key: str):
+@torch.no_grad()
+def _fill(arr: np.ndarray, tmpl: torch.Tensor) -> torch.Tensor:
+    """Copy ``arr`` into the template leaf ``tmpl`` (shape checked by
+    :func:`_check`) and return it."""
+    t = torch.from_numpy(np.array(arr, order="C"))
     if tmpl.dtype == torch.bfloat16:
-        t = torch.from_numpy(np.array(arr, order="C")).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(arr, order="C")).to(tmpl.dtype)
-    if tuple(t.shape) != tuple(tmpl.shape):
-        raise ValueError(
-            f"checkpoint leaf {key}: shape {tuple(t.shape)} != "
-            f"{tuple(tmpl.shape)}"
-        )
-    return t.to(tmpl.device)
+        t = t.view(torch.bfloat16)
+    tmpl.copy_(t)
+    return tmpl
 
 
-def _unflatten_into(template, flat: dict):
-    """Rebuild the leaves in the structure, dtypes and devices of
-    ``template``."""
-    leaves, treedef = tree_util.flatten(template)
-    keys = list(_flatten(tree_util.unflatten(treedef, list(range(len(leaves))))))
-    new = [_from_host(flat[k], leaves[i], k) for i, k in enumerate(keys)]
-    return tree_util.unflatten(treedef, new)
+def _check(template, flat: dict, prefix=""):
+    """Every template leaf has an array of its shape (before any copy)."""
+    items = _items(template)
+    if items is None:
+        if prefix not in flat:
+            raise KeyError(f"checkpoint has no leaf {prefix}")
+        if not isinstance(template, int) and (
+                tuple(flat[prefix].shape) != tuple(template.shape)):
+            raise ValueError(
+                f"checkpoint leaf {prefix}: shape {flat[prefix].shape} != "
+                f"{tuple(template.shape)}"
+            )
+        return
+    for k, v in items:
+        _check(v, flat, _key(prefix, k))
+
+
+def _restore_into(template, flat: dict, prefix=""):
+    """The template with every leaf filled from ``flat``: tensors in place,
+    int leaves replaced, containers rebuilt with their types."""
+    if isinstance(template, nn.Module):
+        for k, p in template.named_parameters():
+            _fill(flat[_key(prefix, k)], p)
+        return template
+    items = _items(template)
+    if items is None:
+        if isinstance(template, int):
+            return int(flat[prefix])
+        return _fill(flat[prefix], template)
+    values = [_restore_into(v, flat, _key(prefix, k)) for k, v in items]
+    if isinstance(template, dict):
+        return dict(zip(template.keys(), values))
+    if isinstance(template, list):
+        return values
+    if hasattr(template, "_fields"):  # a named tuple
+        return type(template)(*values)
+    return tuple(values)
 
 
 class CheckpointManager:
@@ -85,6 +131,7 @@ class CheckpointManager:
         self.async_save = async_save
         self._worker: threading.Thread | None = None
         self._error: Exception | None = None
+        self.writes: list[dict] = []
 
     # ---- save ---------------------------------------------------------
 
@@ -102,6 +149,7 @@ class CheckpointManager:
 
     def _write(self, step: int, flat: dict, meta: dict):
         try:
+            t0 = time.perf_counter()
             tmp = self.dir / f"step_{step:08d}.tmp"
             final = self.dir / f"step_{step:08d}"
             if tmp.exists():
@@ -112,6 +160,11 @@ class CheckpointManager:
                 json.dumps({"step": step, "time": time.time(), **meta})
             )
             os.replace(tmp, final)  # atomic publish
+            self.writes.append({
+                "step": step,
+                "bytes": sum(f.stat().st_size for f in final.iterdir()),
+                "seconds": time.perf_counter() - t0,
+            })
             self._gc()
         except Exception as e:  # surfaced on the next wait()
             self._error = e
@@ -143,12 +196,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, template):
-        """Load ``step`` into the structure, dtypes and devices of
-        ``template``."""
+        """Load ``step`` into ``template``: its tensors are filled in place
+        (dtypes and devices kept), after every shape was checked."""
         path = self.dir / f"step_{step:08d}"
         with np.load(path / "state.npz") as z:
             flat = {k: z[k] for k in z.files}
-        return _unflatten_into(template, flat)
+        _check(template, flat)
+        return _restore_into(template, flat)
 
     def restore_latest(self, template):
         step = self.latest_step()

@@ -13,7 +13,10 @@ from .base import (
     ModelConfig,
     MoEConfig,
     OptimizerConfig,
+    SHAPES,
+    ShapeConfig,
     SubLayer,
+    TrainConfig,
 )
 
 __all__ = [
@@ -29,5 +32,8 @@ __all__ = [
     "ModelConfig",
     "MoEConfig",
     "OptimizerConfig",
+    "SHAPES",
+    "ShapeConfig",
     "SubLayer",
+    "TrainConfig",
 ]

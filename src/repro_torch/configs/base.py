@@ -1,4 +1,5 @@
-"""Config dataclasses of the port: models and the optimizer.
+"""Config dataclasses of the port: models, cell shapes, the optimizer and
+the training run.
 
 A copy of what the port needs from ``repro/configs/base.py`` (the port
 imports nothing of the JAX package).  A model is ``num_super_layers``
@@ -17,7 +18,7 @@ import math
 from typing import Literal
 
 __all__ = ["MoEConfig", "MambaConfig", "SubLayer", "ModelConfig",
-           "OptimizerConfig"]
+           "ShapeConfig", "SHAPES", "OptimizerConfig", "TrainConfig"]
 
 Mixer = Literal["attn", "attn_local", "mamba", "rwkv6", "none"]
 FFN = Literal["dense", "moe", "none"]
@@ -85,6 +86,20 @@ class ModelConfig:
     sandwich_norm: bool = False   # gemma2 post-mixer / post-ffn norms
     scale_embeddings: bool = False  # gemma: embed * sqrt(d_model)
     dtype: str = "bfloat16"
+    # checkpointing of the stack, one super-layer at a time: "full"
+    # recomputes its forward in the backward pass, "dots" keeps the matrix
+    # products' outputs and recomputes the rest, "none" keeps everything
+    remat: str = "full"
+    # The reference's XLA levers: they set how XLA slices and fuses, not
+    # what is computed.  The port accepts them and computes the same values
+    # with either setting.
+    window_kv_slice: bool = False  # slice K/V to the window per q-chunk
+    scan_unroll: int = 1           # SSM time-scan unroll (fusion width)
+    # precision levers: cotangents cast to the weight dtype through the
+    # projections (float32 accumulation); Mamba's dt / B / C rounded to
+    # bf16 (the state stays float32)
+    bf16_bwd: bool = False
+    mamba_bf16_io: bool = False
 
     def __post_init__(self):
         if self.num_layers % len(self.pattern) != 0:
@@ -92,6 +107,9 @@ class ModelConfig:
                 f"{self.name}: num_layers {self.num_layers} not divisible "
                 f"by pattern length {len(self.pattern)}"
             )
+        if self.remat not in ("full", "dots", "none"):
+            raise ValueError(f"{self.name}: remat {self.remat!r} is not "
+                             "one of full / dots / none")
         if self.encoder_layers or self.cross_attention:
             raise NotImplementedError(
                 f"{self.name}: the port carries decoder-only models; the "
@@ -184,6 +202,22 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     name: str = "adamw"
     lr: float = 3e-4
@@ -196,3 +230,20 @@ class OptimizerConfig:
     decay_steps: int = 10_000
     stable_steps: int = 0         # WSD plateau
     moment_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 100
+    seq_len: int = 512
+    global_batch: int = 8
+    microbatch: int | None = None     # gradient accumulation
+    seed: int = 0
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+    log_every: int = 10
+    optimizer: OptimizerConfig = OptimizerConfig()
+    # carried as the reference carries them: its build_training reads
+    # neither, and neither does the port's
+    grad_sync_algorithm: str = "auto"
+    grad_sync_compress_bits: int | None = None

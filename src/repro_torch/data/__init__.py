@@ -1,3 +1,3 @@
-from .pipeline import SyntheticLM
+from .pipeline import Prefetcher, SyntheticLM
 
-__all__ = ["SyntheticLM"]
+__all__ = ["Prefetcher", "SyntheticLM"]

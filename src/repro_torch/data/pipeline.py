@@ -1,21 +1,29 @@
-"""Deterministic synthetic LM data.
+"""Deterministic synthetic LM data, and a background prefetcher.
 
-The port of ``repro/data/pipeline.py::SyntheticLM`` without the JAX
-sharding.  Batch ``step`` is a pure function of ``(seed, step)`` drawn with
-numpy, so both packages draw the same global batch.  A rank takes its rows
+The port of ``repro/data/pipeline.py`` without the JAX sharding.  Batch
+``step`` is a pure function of ``(seed, step)`` drawn with numpy, so both
+packages draw the same global batch.  A rank takes its rows
 in the order the reference's ``P(("pod", "data"))`` batch spec assigns them:
 rank ``node * ppn + lane`` holds rows ``[rank * b, (rank + 1) * b)`` with
 ``b = global_batch / world``.
+
+:class:`Prefetcher` draws the next ``depth`` batches as numpy on a worker
+thread; they move to the device on the caller's thread, so the worker
+makes no CUDA call.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-__all__ = ["SyntheticLM"]
+from ..device import resolve_device
+
+__all__ = ["SyntheticLM", "Prefetcher"]
 
 
 @dataclass
@@ -61,17 +69,65 @@ class SyntheticLM:
         mask[:, -1] = 0.0
         return {"tokens": tokens, "labels": labels, "loss_mask": mask}
 
-    def batch(self, step: int, device) -> dict[str, torch.Tensor]:
-        """This rank's rows of batch ``step``, as tensors on ``device``."""
+    def batch_numpy(self, step: int) -> dict[str, np.ndarray]:
+        """This rank's rows of batch ``step``, as numpy arrays."""
         full = self.global_batch_numpy(step)
         b = self.global_batch // self.world
         rows = slice(self.rank * b, (self.rank + 1) * b)
+        return {k: v[rows] for k, v in full.items()}
+
+    @staticmethod
+    def to_device(batch: dict[str, np.ndarray], device) -> dict:
+        """Tensors on ``device`` of a numpy batch (token ids as int64)."""
         return {
-            "tokens": torch.from_numpy(full["tokens"][rows]).to(
-                device, torch.int64
-            ),
-            "labels": torch.from_numpy(full["labels"][rows]).to(
-                device, torch.int64
-            ),
-            "loss_mask": torch.from_numpy(full["loss_mask"][rows]).to(device),
+            k: torch.from_numpy(v).to(
+                device, torch.int64 if k in ("tokens", "labels") else None
+            )
+            for k, v in batch.items()
         }
+
+    def batch(self, step: int, device) -> dict[str, torch.Tensor]:
+        """This rank's rows of batch ``step``, as tensors on ``device``."""
+        return self.to_device(self.batch_numpy(step), device)
+
+
+class Prefetcher:
+    """Background prefetch of ``depth`` batches (thread + queue), from
+    ``start_step`` on.  ``next()`` returns ``(step, batch)`` with the batch
+    on ``device`` (``cuda`` unless asked otherwise); ``close()`` stops the
+    worker."""
+
+    def __init__(self, source: SyntheticLM, start_step: int = 0,
+                 depth: int = 2, *, device=None):
+        self._source = source
+        self._device = resolve_device(device)
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._step = start_step
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        step = self._step
+        while not self._stop.is_set():
+            batch = self._source.batch_numpy(step)
+            while not self._stop.is_set():
+                try:
+                    self._q.put((step, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def next(self) -> tuple[int, dict]:
+        step, batch = self._q.get()
+        return step, self._source.to_device(batch, self._device)
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2)

@@ -1,15 +1,27 @@
-"""The data-parallel train step with the paper's collectives, and the serving
-steps.
+"""Step builders: the train steps and the serving steps.
 
-The port of ``repro/launch/steps.py::make_dp_train_step``,
-``make_prefill_step`` and ``make_serve_step``.  Train: parameters are
-replicated, every rank computes gradients on its rows of the batch, and
-the gradient buckets and the loss scalar are synchronised through a
-:class:`~repro_torch.core.comm.CommContext` — node-aware sync, compressed
-transport on the CUDA transport kernels, and error feedback, end to end.
+The port of ``repro/launch/steps.py``:
+
+* :func:`make_train_step` — one rank's step with microbatched gradient
+  accumulation in float32, then AdamW (the single-device trainer that
+  :mod:`repro_torch.launch.train` drives);
+* :func:`make_dp_train_step` — data parallel with the paper's
+  collectives: parameters are replicated, every rank computes gradients on
+  its rows of the batch, and the gradient buckets and the loss scalar are
+  synchronised through a :class:`~repro_torch.core.comm.CommContext` —
+  node-aware sync, compressed transport on the CUDA transport kernels, and
+  error feedback, end to end;
+* :func:`make_prefill_step` / :func:`make_serve_step`;
+* :func:`make_policy` and :func:`microbatch_split`, which size a cell on a
+  :class:`~repro_torch.launch.mesh.Mesh`.
+
+A train step's state is ``{"model", "opt"[, "ef"]}``: the model holds the
+parameters, which the step updates in place with the AdamW moments.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -20,10 +32,110 @@ from ..device import require_on, resolve_device
 from ..models import build_model, init_params
 from ..models.layers import head_dot
 from ..models.model import _final_hidden
+from ..models.sharding import ShardingPolicy
 from ..optim import adamw_init, adamw_update, ef_init, make_schedule
+from .mesh import dp_axes as mesh_dp_axes
 
-__all__ = ["make_dp_train_step", "init_train_state", "make_prefill_step",
+__all__ = ["make_policy", "microbatch_split", "make_train_step",
+           "make_dp_train_step", "init_train_state", "make_prefill_step",
            "make_serve_step"]
+
+
+def make_policy(cfg, mesh, *, seq_parallel: bool = False,
+                mode: str = "train") -> ShardingPolicy:
+    if mesh is None:
+        return ShardingPolicy()
+    dp = mesh_dp_axes(mesh)
+    return ShardingPolicy(
+        mesh=mesh,
+        dp_axes=dp if mode != "serve2d" else (),
+        tp_axis="model" if "model" in mesh.axis_names else None,
+        fsdp_axes=dp,
+        seq_parallel=seq_parallel,
+        mode=mode,
+    )
+
+
+def microbatch_split(cfg, shape, mesh) -> int:
+    """Number of grad-accumulation microbatches for a train cell.
+
+    Sized so the layer stack's residual carry (num_super x B_m x S x D
+    bf16 per chip) stays ~<= 6 GB; must divide the per-chip batch.
+    """
+    if shape.kind != "train":
+        return 1
+    dp = 1
+    if mesh is not None:
+        sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+        dp = math.prod(sizes[a] for a in mesh_dp_axes(mesh))
+    b_local = max(1, shape.global_batch // dp)
+    carry_per_sample = cfg.num_super_layers * shape.seq_len * cfg.d_model * 2
+    b_m = max(1, int(6e9 // max(carry_per_sample, 1)))
+    b_m = min(b_m, b_local)
+    while b_local % b_m:
+        b_m -= 1
+    return b_local // b_m
+
+
+def _microbatches(batch: dict, n_micro: int) -> list[dict]:
+    """Microbatch ``i`` is rows ``[i * B_m, (i + 1) * B_m)`` of every
+    leaf, as the reference's ``reshape((n_micro, -1) + shape[1:])``."""
+    for k, x in batch.items():
+        if x.shape[0] % n_micro:
+            raise ValueError(f"batch leaf {k!r} of {x.shape[0]} rows does "
+                             f"not split into {n_micro} microbatches")
+    split = {k: x.reshape((n_micro, -1) + tuple(x.shape[1:]))
+             for k, x in batch.items()}
+    return [{k: x[i] for k, x in split.items()} for i in range(n_micro)]
+
+
+def make_train_step(model, opt_cfg, *, n_micro: int = 1, device=None):
+    """``step(state, batch) -> (state, metrics)`` for ``model``'s state
+    ``{"model", "opt"}`` (:func:`init_train_state`).
+
+    With ``n_micro > 1`` the batch is split into ``n_micro`` microbatches
+    of consecutive rows; each one's loss is its own masked mean and its
+    gradients, in the parameters' dtype, are added into a float32
+    accumulator.  The step's gradients are that sum over ``n_micro`` and
+    its loss the mean of the microbatch losses.  With ``n_micro == 1`` the
+    gradients go to AdamW in the parameters' dtype.  Then AdamW at the
+    schedule's rate; the metrics are ``loss``, ``lr`` and AdamW's."""
+    require_on(model, device)
+    sched = make_schedule(opt_cfg)
+
+    def train_step(state, batch):
+        model, opt = state["model"], state["opt"]
+        params = model.params()
+        leaves, treedef = tree_util.flatten(params)
+        if n_micro == 1:
+            loss, _ = model(batch)
+            grads = list(torch.autograd.grad(loss, leaves))
+            loss = loss.detach()
+        else:
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for p in leaves]
+            lsum = torch.zeros((), dtype=torch.float32, device=model.device)
+            for mb in _microbatches(batch, n_micro):
+                l, _ = model(mb)
+                g = torch.autograd.grad(l, leaves)
+                with torch.no_grad():
+                    for a, gg in zip(acc, g):
+                        a.add_(gg.to(torch.float32))
+                    lsum = lsum + l.detach()
+                del g, l
+            grads = [a.div_(n_micro) for a in acc]
+            loss = lsum / n_micro
+        grads = tree_util.unflatten(treedef, grads)
+        lr = sched(opt.step)
+        new_opt, om = adamw_update(
+            grads, opt, params,
+            lr=lr, betas=opt_cfg.betas, eps=opt_cfg.eps,
+            weight_decay=opt_cfg.weight_decay, grad_clip=opt_cfg.grad_clip,
+        )
+        return {"model": model, "opt": new_opt}, {"loss": loss, "lr": lr,
+                                                  **om}
+
+    return train_step
 
 
 def init_train_state(cfg, opt_cfg, sync_cfg, *, params=None,

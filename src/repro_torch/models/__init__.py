@@ -7,6 +7,7 @@ from .model import (
     params_from_jax,
     params_to_numpy,
 )
+from .sharding import REPLICATED, ShardingPolicy
 
 __all__ = [
     "Model",
@@ -16,4 +17,6 @@ __all__ = [
     "init_params",
     "params_from_jax",
     "params_to_numpy",
+    "REPLICATED",
+    "ShardingPolicy",
 ]

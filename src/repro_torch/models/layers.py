@@ -6,6 +6,14 @@ projection keeps its input dtype (bf16 in, bf16 out, f32 accumulation in
 cuBLAS); :func:`head_dot` gives float32 logits from float32 products of
 the (possibly bf16) inputs, as the reference's
 ``preferred_element_type=float32`` does.
+
+Under :class:`mixed_bwd` (the config's ``bf16_bwd`` lever) :func:`dense`
+and :func:`head_dot` route operands of one dtype through autograd
+functions whose backward casts the incoming cotangent to the weight's
+dtype first, so the two backward products run in bf16 with float32
+accumulation, ``dx`` rounded to the input's dtype and ``dw`` to the
+weight's (the reference's ``_mdot`` / ``_mdot_f32out``).  The forward
+values are the same with the lever on or off.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import torch.nn.functional as F
 __all__ = [
     "softcap",
     "rms_norm",
+    "mixed_bwd",
     "init_dense",
     "dense",
     "head_dot",
@@ -52,8 +61,75 @@ def init_dense(shape, dtype, *, generator, device, scale: float | None = None):
     return (w * scale).to(dtype)
 
 
+# Whether projections take the bf16 backward; set while a forward pass
+# runs (the autograd function is chosen then), as the reference's flag is
+# read while it traces.
+_MIXED_BWD: list[bool] = [False]
+
+
+class mixed_bwd:
+    """Context manager: projections in its scope take the bf16 backward."""
+
+    def __init__(self, enabled: bool):
+        self.enabled = bool(enabled)
+
+    def __enter__(self):
+        self.prev = _MIXED_BWD[0]
+        _MIXED_BWD[0] = self.enabled
+        return self
+
+    def __exit__(self, *exc):
+        _MIXED_BWD[0] = self.prev
+        return False
+
+
+def mixed_bwd_enabled() -> bool:
+    return _MIXED_BWD[0]
+
+
+def _mdot_backward(x, w, g):
+    """``(dx, dw)`` of ``x @ w`` from the cotangent ``g``, cast to the
+    weight's dtype: products with float32 accumulation, ``dx`` rounded to
+    ``x``'s dtype and ``dw`` to ``w``'s."""
+    g16 = g.to(w.dtype)
+    dx = torch.matmul(g16, w.transpose(-1, -2)).to(x.dtype)
+    dw = torch.matmul(x.reshape(-1, x.shape[-1]).transpose(0, 1),
+                      g16.reshape(-1, g16.shape[-1])).to(w.dtype)
+    return dx, dw
+
+
+class _MDot(torch.autograd.Function):
+    """``x @ w`` in ``x``'s dtype, with the bf16 backward."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mdot_backward(*ctx.saved_tensors, g)
+
+
+class _MDotF32Out(torch.autograd.Function):
+    """``x @ w`` with a float32 output (the head), with the bf16 backward.
+    The operands are upcast (exact) and multiplied in float32."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mdot_backward(*ctx.saved_tensors, g)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None):
-    y = torch.matmul(x, w)
+    if _MIXED_BWD[0] and x.dtype == w.dtype:
+        y = _MDot.apply(x, w)
+    else:
+        y = torch.matmul(x, w)
     if b is not None:
         y = y + b
     return y
@@ -61,6 +137,8 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None):
 
 def head_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Projection with float32 output (logits)."""
+    if _MIXED_BWD[0] and x.dtype == w.dtype:
+        return _MDotF32Out.apply(x, w)
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 

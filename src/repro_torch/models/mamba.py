@@ -1,9 +1,11 @@
 """Mamba (S6) selective state-space mixer -- the jamba hybrid's workhorse.
 
 The port of ``repro/models/mamba.py``: the full-sequence mixer runs the
-selective scan as a loop over time (the reference's ``lax.scan``), and
-single-token decode is an O(1) update of a cache of the last
-``d_conv - 1`` conv inputs and the float32 SSM state, written in place.
+selective scan as a loop over time (the reference's ``lax.scan``; with
+``cfg.mamba_bf16_io`` its ``dt`` / ``B`` / ``C`` are rounded to bf16 and the
+state stays float32), and single-token decode is an O(1) update of a cache
+of the last ``d_conv - 1`` conv inputs and the float32 SSM state, written
+in place.
 As in the reference, this module is the oracle of the Mamba scan kernel
 (``repro_torch.kernels.mamba_scan``) and does not call it.
 """
@@ -78,6 +80,10 @@ def mamba_full(params, u: torch.Tensor, *, cfg) -> torch.Tensor:
     x = F.silu(acc + params["conv_b"].to(x.dtype))
 
     dt, Bmat, Cmat = _dt_B_C(params, x, cfg)  # (B,S,d_in),(B,S,N),(B,S,N)
+    if cfg.mamba_bf16_io:
+        # the scan's inputs rounded to bf16, its state math in float32
+        dt, Bmat, Cmat = (t.to(torch.bfloat16).to(torch.float32)
+                          for t in (dt, Bmat, Cmat))
     A = -torch.exp(params["A_log"])  # (d_in, N)
     dBx_in = dt * x.to(torch.float32)
     state = torch.zeros((Bsz, d_inner, m.d_state), dtype=torch.float32,

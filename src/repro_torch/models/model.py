@@ -14,7 +14,9 @@ shapes, e.g. for a dense model::
 held by :class:`Model` as ``nn.Parameter``s; :meth:`Model.leaves` lists
 them in the order ``jax.tree.flatten`` lists the reference's (sorted keys).
 The training loss is a sequence-chunked cross-entropy with float32
-logits through the (tied or untied) head, plus the MoE load-balance loss.
+logits through the (tied or untied) head, plus the MoE load-balance loss;
+it runs under :class:`~repro_torch.models.layers.mixed_bwd` when the
+config sets ``bf16_bwd``, and the stack under the config's ``remat``.
 
 Cached decode (:meth:`Model.init_decode` / :meth:`Model.decode_hidden` /
 :meth:`Model.decode_step`) keeps one index per batch row, so a fixed batch
@@ -41,7 +43,7 @@ import torch
 from torch import nn
 
 from . import transformer as tfm
-from .layers import head_dot, rms_norm, softcap
+from .layers import head_dot, mixed_bwd, rms_norm, softcap
 from .. import tree as tree_util
 from ..device import resolve_device
 
@@ -129,6 +131,12 @@ class Model(nn.Module):
         return tree_util.leaves(self.params())
 
     def forward(self, batch: dict):
+        # the config's bf16_bwd lever: the projections of this pass take
+        # the bf16 backward (the reference's ``Model.loss``)
+        with mixed_bwd(self.cfg.bf16_bwd):
+            return self._loss(batch)
+
+    def _loss(self, batch: dict):
         cfg = self.cfg
         p = self.params()
         hidden, aux = _final_hidden(p, batch, cfg)

@@ -22,13 +22,18 @@ by layer.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
-from .layers import glu_mlp, init_glu_mlp, rms_norm
+from .layers import (
+    glu_mlp, init_glu_mlp, mixed_bwd, mixed_bwd_enabled, rms_norm,
+)
 from .. import tree as tree_util
 
 __all__ = ["init_stack", "stack_apply", "init_stack_cache", "stack_decode"]
@@ -106,17 +111,76 @@ def _sublayer_full(p, x, sub, *, cfg, positions):
     return x, aux
 
 
+# the outputs "dots" keeps: matrix products (``jax.checkpoint_policies.
+# dots_saveable`` keeps every dot_general's); ``torch.matmul`` and
+# ``einsum`` reach the dispatcher as these
+_DOT_OPS = frozenset({
+    torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default,
+})
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    if op in _DOT_OPS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _super_layer(layer_params, x, aux, *, cfg, positions):
+    for i, sub in enumerate(cfg.pattern):
+        x, a = _sublayer_full(layer_params[f"sub{i}"], x, sub, cfg=cfg,
+                              positions=positions)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _layer_views(stack_params, n_layers: int) -> list:
+    """Each layer's parameter tree, as views of the stacked leaves.  One
+    ``unbind`` per leaf: its backward stacks the layers' gradients into one
+    tensor, where indexing each layer would give every layer a zero-padded
+    gradient of the whole stacked leaf to add up (bytes growing as the
+    square of the depth)."""
+    leaves, treedef = tree_util.flatten(stack_params)
+    unbound = [t.unbind(0) for t in leaves]
+    return [tree_util.unflatten(treedef, [u[i] for u in unbound])
+            for i in range(n_layers)]
+
+
+def _remat_wrap(body, remat: str):
+    """``body(x, aux) -> (x, aux)`` under the remat policy.  The
+    recomputation runs under the ``mixed_bwd`` setting of the forward pass,
+    so it builds the same graph."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return body
+    mixed = mixed_bwd_enabled()
+
+    def scoped(x, aux):
+        with mixed_bwd(mixed):
+            return body(x, aux)
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_saveable
+        )
+    return lambda x, aux: ckpt.checkpoint(scoped, x, aux,
+                                          use_reentrant=False, **kw)
+
+
 def stack_apply(stack_params, x: torch.Tensor, *, cfg, positions):
-    """Run the stack, layer by layer.  Returns ``(hidden, aux)``: the MoE
-    load-balance losses summed over sublayers and layers (float32 zero
-    without MoE), as the reference's scan carries them."""
+    """Run the stack, one super-layer at a time under ``cfg.remat``.
+    Returns ``(hidden, aux)``: the MoE load-balance losses summed over
+    sublayers and layers (float32 zero without MoE), as the reference's
+    scan carries them."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in range(cfg.num_super_layers):
-        for i, sub in enumerate(cfg.pattern):
-            p = tree_util.tree_map(lambda t: t[layer], stack_params[f"sub{i}"])
-            x, a = _sublayer_full(p, x, sub, cfg=cfg, positions=positions)
-            if a is not None:
-                aux = aux + a
+    for layer_params in _layer_views(stack_params, cfg.num_super_layers):
+        body = _remat_wrap(
+            functools.partial(_super_layer, layer_params, cfg=cfg,
+                              positions=positions),
+            cfg.remat,
+        )
+        x, aux = body(x, aux)
     return x, aux
 
 

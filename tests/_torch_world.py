@@ -31,6 +31,13 @@ of ``mode`` and writes its results to ``<out_dir>/rank<rank>.npz``:
   report, and ``serve_batch`` on each rank's row of a batch with the EOS
   exit agreed by the group.
 
+* ``dp_checks`` — the reference's two DP-training acceptance checks
+  (``_multidevice_checks.py::check_dp_training_ef_convergence`` and
+  ``check_dp_training_nap_equals_psum``) on a 4x4 grid of 16 ranks from
+  the parameters in ``<out_dir>/params0.npz``: 120 steps each of
+  uncompressed, int4 + EF and raw int4 ``nap`` sync at lr 1e-2, and 4
+  steps each of ``psum`` and ``nap`` at lr 1e-3; the losses of every run.
+
 ``jax_train`` / ``jax_rs_ag`` / ``jax_serve`` (one process, 4 virtual CPU
 devices) run the JAX package's side of ``train`` / ``rs_ag`` / ``serve``
 (2x2) and write ``<out_dir>/jax.npz``.  The tests start a world with :func:`spawn_world`.
@@ -633,6 +640,85 @@ def run_train(rank, world, out_dir):
     return out
 
 
+DP_GRID, DP_SEQ, DP_BATCH, DP_SEED = (4, 4), 32, 16, 3
+DP_EF_STEPS, DP_PSUM_STEPS = 120, 4
+#: the three transports of the convergence check
+DP_EF_RUNS = (
+    ("base", dict(algorithm="nap", mean=True)),
+    ("ef4", dict(algorithm="nap", mean=True, compress_bits=4,
+                 error_feedback=True)),
+    ("raw4", dict(algorithm="nap", mean=True, compress_bits=4)),
+)
+
+
+def dp_losses(cfg, params, topo, policy, opt, data, steps, device="cpu"):
+    """The losses of ``steps`` DP train steps from ``params``."""
+    from repro_torch.launch import init_train_state, make_dp_train_step
+
+    step = make_dp_train_step(cfg, opt, topo, policy, device=device)
+    state = init_train_state(cfg, opt, policy, params=params, device=device)
+    losses = []
+    for s in range(steps):
+        state, m = step(state, data.batch(s, device))
+        losses.append(float(m["loss"]))
+    return np.asarray(losses)
+
+
+def ef_criteria(base, ef4, raw4):
+    """The reference's five criteria of the convergence check, with the
+    numbers they compare."""
+    tail = lambda ls: float(np.mean(ls[-10:]))  # noqa: E731
+    out = {
+        "base_tail": tail(base), "ef4_tail": tail(ef4),
+        "raw4_tail": tail(raw4),
+        "gap_ef": abs(tail(ef4) - tail(base)),
+        "gap_raw": abs(tail(raw4) - tail(base)),
+        "dev_ef": float(np.mean(np.abs(np.asarray(ef4) - base))),
+        "dev_raw": float(np.mean(np.abs(np.asarray(raw4) - base))),
+    }
+    out["criteria"] = {
+        "finite": bool(np.all(np.isfinite(ef4))),
+        "learned": out["base_tail"] < base[0] - 0.5,
+        "gap_ef": out["gap_ef"] < 0.15 * out["base_tail"],
+        "gap_raw": out["gap_raw"] > out["gap_ef"],
+        "dev_raw": out["dev_raw"] > 1.4 * out["dev_ef"],
+    }
+    return out
+
+
+def run_dp_checks(rank, world, out_dir):
+    import time
+
+    from repro_torch import tree
+    from repro_torch.configs import MINICPM_2B, OptimizerConfig, reduced
+    from repro_torch.core import CommPolicy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import mesh_topology
+    from repro_torch.models import init_params, params_from_jax
+
+    cfg = reduced(MINICPM_2B)
+    with np.load(Path(out_dir) / "params0.npz") as z:
+        flat0 = [z[f"leaf{i}"] for i in range(len(z.files))]
+    _, td = tree.flatten(init_params(cfg, device="meta"))
+    params = params_from_jax(tree.unflatten(td, flat0), cfg, "cpu")
+    topo = mesh_topology(*DP_GRID)
+    data = SyntheticLM(cfg.vocab_size, DP_SEQ, DP_BATCH, seed=DP_SEED,
+                       rank=rank, world=world)
+    t0 = time.perf_counter()
+    out = {}
+    opt = OptimizerConfig(lr=1e-2, schedule="constant", warmup_steps=1)
+    for name, kw in DP_EF_RUNS:
+        out[name] = dp_losses(cfg, params, topo, CommPolicy(**kw), opt, data,
+                              DP_EF_STEPS)
+    opt = OptimizerConfig(lr=1e-3, schedule="constant", warmup_steps=1)
+    for algo in ("psum", "nap"):
+        out[algo] = dp_losses(cfg, params, topo,
+                              CommPolicy(algorithm=algo, mean=True), opt,
+                              data, DP_PSUM_STEPS)
+    out["seconds"] = np.asarray(time.perf_counter() - t0)
+    return out
+
+
 def run_jax_train(out_dir):
     os.environ["XLA_FLAGS"] = (
         "--xla_force_host_platform_device_count=4 "
@@ -769,6 +855,8 @@ def main():
             out = run_baselines(rank, world)
         elif mode == "serve":
             out = run_serve(rank, world, out_dir)
+        elif mode == "dp_checks":
+            out = run_dp_checks(rank, world, out_dir)
         else:
             raise SystemExit(f"unknown mode {mode!r}")
         dist.barrier()

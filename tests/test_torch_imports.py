@@ -11,18 +11,22 @@ import torch
 
 import repro_torch
 from repro_torch.configs import ARCHS, MINICPM_2B, OptimizerConfig, reduced
+from repro_torch.configs import TrainConfig
 from repro_torch.core import CommPolicy, Topology
+from repro_torch.data import Prefetcher, SyntheticLM
 from repro_torch.launch import (
-    init_train_state, make_dp_train_step, make_prefill_step, make_serve_step,
+    build_training, init_train_state, make_dp_train_step, make_prefill_step,
+    make_serve_step, make_train_step,
 )
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model, cache_from_jax, params_from_jax
 from repro_torch.serve import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
-]
+] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -79,6 +83,14 @@ def test_guard_sees_the_model_family_modules():
     for name in ("moe", "mamba", "rwkv", "attention", "transformer",
                  "layers", "model"):
         assert models / f"{name}.py" in PORT_FILES, name
+
+
+def test_guard_sees_the_training_driver_modules():
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("launch/train.py", "launch/steps.py", "launch/mesh.py",
+                "models/sharding.py", "data/pipeline.py",
+                "configs/base.py"):
+        assert port / rel in PORT_FILES, rel
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
@@ -164,3 +176,36 @@ def test_serving_entry_points_run_on_cpu_when_asked(no_cuda, capsys):
                        "cpu", "--batch", "2", "--prompt-len", "3",
                        "--gen", "2"])
     assert "generated (2, 2) tokens" in capsys.readouterr().out
+
+
+def _tiny_train_cfg():
+    return TrainConfig(steps=2, seq_len=16, global_batch=2,
+                       checkpoint_every=0)
+
+
+def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    cfg = reduced(MINICPM_2B)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_training(cfg, _tiny_train_cfg(), ckpt_dir=tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "minicpm-2b", "--reduced", "--steps",
+                           "1", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(_cpu_model(), OptimizerConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Prefetcher(SyntheticLM(16, 4, 2))
+
+
+def test_training_entry_points_run_on_cpu_when_asked(no_cuda, tmp_path):
+    loop = build_training(reduced(MINICPM_2B), _tiny_train_cfg(),
+                          ckpt_dir=tmp_path, device="cpu")
+    loop.run(2)
+    assert loop.state["model"].device.type == "cpu"
+    assert len(loop.metrics_log) == 2
+    step = make_train_step(_cpu_model(), OptimizerConfig(), device="cpu")
+    assert callable(step)
+    pf = Prefetcher(SyntheticLM(16, 4, 2), device="cpu")
+    try:
+        assert pf.next()[1]["tokens"].device.type == "cpu"
+    finally:
+        pf.close()
