@@ -167,6 +167,24 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    compressed run, counters zeroed before and read after each run) and
    the reference's five criteria held (they hold on the CPU at 1 x 1,
    ``tests/test_torch_dp_checks.py``).
+16. ``whisper``: the encoder-decoder, whisper-tiny whole (4 encoder and 4
+   decoder layers, d 384, bf16, seeded parameters), with whisper's
+   published encoder context of 1500 frames and text context of 448.
+   Serving through a ``ServeEngine`` of 8 slots x 448 with
+   ``extras_template`` frames (1, 1500, 384): the 6 requests of
+   ``family_traffic``, each with its own seeded frames, 4 at the start and
+   2 after two steps, bitwise equal to a serial run through a fresh
+   engine, no kernel launched (counters zeroed just before, read just
+   after); a ``Router`` over two such engines loses replica 0 after two
+   steps and every request ends with its serial tokens; decode ms per
+   step (median, min), decode tokens/s, prefill ms per prompt token, the
+   encoder's ms per request, peak memory.  float32 (TF32 off)
+   teacher-forced decode against the full forward at B 2, S 32, 1500
+   frames, rtol = atol 2e-3.  Training at batch 8 x 448 with 1500 frames
+   a row: 2 int4+EF ``make_dp_train_step`` steps at world size 1 (finite
+   losses; each transport kernel launched buckets x steps times, counters
+   zeroed before and read after), then 2 steps of ``make_train_step`` at
+   n_micro 2: ms per step, peak memory.
 
 Then a line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits non-zero
@@ -1428,17 +1446,23 @@ def serve_engine(model, device, **kw):
                        device=device, **kw)
 
 
-def serve_serial(engine, traffic) -> list:
-    """Each request alone through ``engine``, one after another."""
+def _extras_kw(extras, i) -> dict:
+    """``submit``'s keyword for request ``i``'s extras (none without)."""
+    return {} if extras is None else {"extras": extras[i]}
+
+
+def serve_serial(engine, traffic, extras=None) -> list:
+    """Each request alone through ``engine``, one after another
+    (``extras``: each request's, for an encoder-decoder)."""
     out = []
-    for prompt, new in traffic:
-        req = engine.submit(prompt, new)
+    for i, (prompt, new) in enumerate(traffic):
+        req = engine.submit(prompt, new, **_extras_kw(extras, i))
         out.append(engine.run()[req.rid])
     return out
 
 
-def serve_continuous(engine, traffic, sync,
-                     first: int = SERVE["first"]) -> tuple[list, list]:
+def serve_continuous(engine, traffic, sync, first: int = SERVE["first"],
+                     extras=None) -> tuple[list, list]:
     """Continuous batching: ``first`` requests at the start, the rest after
     two engine steps.  Returns the streams and each prefill's (prompt
     tokens, seconds), timed between device synchronisations."""
@@ -1454,24 +1478,31 @@ def serve_continuous(engine, traffic, sync,
         return out
 
     engine._prefill = timed
-    reqs = [engine.submit(p, n) for p, n in traffic[:first]]
+    reqs = [engine.submit(p, n, **_extras_kw(extras, i))
+            for i, (p, n) in enumerate(traffic[:first])]
     for _ in range(2):
         engine.step()
-    reqs += [engine.submit(p, n) for p, n in traffic[first:]]
+    reqs += [engine.submit(p, n, **_extras_kw(extras, first + i))
+             for i, (p, n) in enumerate(traffic[first:])]
     out = engine.run()
     engine._prefill = prefill
     return [out[r.rid] for r in reqs], prefills
 
 
-def serve_router_resume(model, device, traffic, serial) -> dict:
-    """A router over two engines sharing ``model``; replica 0 dies after
-    two steps of each.  Every accepted request must end with its serial
-    tokens (the resumed ones replay what they had generated)."""
+def serve_router_resume(model, device, traffic, serial, *, make=None,
+                        extras=None) -> dict:
+    """A router over two engines sharing ``model`` (``make()`` builds one;
+    :func:`serve_engine` by default); replica 0 dies after two steps of
+    each.  Every accepted request must end with its serial tokens (the
+    resumed ones replay what they had generated; an encoder-decoder's are
+    re-prefilled from their own ``extras``)."""
     from repro_torch.serve import Router
 
-    a, b = serve_engine(model, device), serve_engine(model, device)
+    make = make or (lambda: serve_engine(model, device))
+    a, b = make(), make()
     router = Router([a, b])
-    reqs = [router.submit(p, n) for p, n in traffic]
+    reqs = [router.submit(p, n, **_extras_kw(extras, i))
+            for i, (p, n) in enumerate(traffic)]
     for _ in range(2):
         a.step()
         b.step()
@@ -1793,18 +1824,19 @@ class _RouterLog:
         return False
 
 
-def _decode_vs_full(model, hold: bool = True) -> dict:
+def _decode_vs_full(model, hold: bool = True, extras=None) -> dict:
     """Teacher-forced ``decode_step`` logits against ``Model.logits``,
     float32 (TF32 off), B 2, S 32, at rtol = atol 2e-3; with MoE, the
     top-k sets of the two paths position by position.  ``hold=False``
-    reports the error without holding it (rwkv6 at its whole depth)."""
+    reports the error without holding it (rwkv6 at its whole depth).
+    ``extras``: an encoder-decoder's ``{"frames": (B, S_enc, D)}``."""
     cfg = model.cfg
     B, S, tol = FAMILY_CHECK["B"], FAMILY_CHECK["S"], FAMILY_CHECK["tol"]
     toks = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (B, S))).to(model.device)
     with _RouterLog() as full_log:
-        full = model.logits({"tokens": toks})
-    cache = model.init_decode(B, S)
+        full = model.logits({"tokens": toks, **(extras or {})})
+    cache = model.init_decode(B, S, batch=extras)
     outs, dec_log = [], []
     for t in range(S):
         with _RouterLog() as log:
@@ -1930,14 +1962,19 @@ def _check_config(cfg):
     return cfg
 
 
-def _family_train(cfg, device="cuda") -> dict:
-    """Two int4+EF steps of make_dp_train_step at world size 1, batch
-    2 x 512: finite losses, transport launches = buckets x steps; for the
-    MoE configuration also the plain transport route, bitwise equal."""
-    data = SyntheticLM(cfg.vocab_size, FAMILY_TRAIN["S"], FAMILY_TRAIN["B"],
-                       seed=SEED)
-    steps = FAMILY_TRAIN["steps"]
-    routes = ("auto", "plain") if cfg.moe is not None else ("auto",)
+def _family_train(cfg, device="cuda", *, sizes=FAMILY_TRAIN, data=None,
+                  routes=None) -> dict:
+    """Int4+EF steps of make_dp_train_step at world size 1 (``sizes``:
+    batch B x S, steps; ``data``: SyntheticLM's batches by default):
+    finite losses, transport launches = buckets x steps.  With the plain
+    transport route among ``routes`` (by default for a MoE configuration)
+    the same steps on it, and losses and every parameter leaf bitwise equal
+    to the kernel route's."""
+    data = data or SyntheticLM(cfg.vocab_size, sizes["S"], sizes["B"],
+                               seed=SEED)
+    steps = sizes["steps"]
+    routes = routes or (("auto", "plain") if cfg.moe is not None
+                        else ("auto",))
     row, kept = {"config": cfg.name, "params": cfg.param_count()}, {}
     for impl in routes:
         _free()
@@ -1959,11 +1996,11 @@ def _family_train(cfg, device="cuda") -> dict:
                       else None)
         row[impl] = {"losses": losses, "step_ms": [t * 1e3 for t in times],
                      "ms_per_step": times[-1] * 1e3,
-                     "tokens_per_s": FAMILY_TRAIN["B"] * FAMILY_TRAIN["S"]
-                     / times[-1],
+                     "tokens_per_s": sizes["B"] * sizes["S"] / times[-1],
                      "peak_device_memory_bytes":
                          torch.cuda.max_memory_allocated(),
-                     "buckets": plan.num_buckets, "launches": counts}
+                     "buckets": plan.num_buckets,
+                     "leaves": len(plan.signature), "launches": counts}
         del state
     if len(routes) > 1:
         (la, pa), (lb, pb) = kept["auto"], kept["plain"]
@@ -2333,6 +2370,173 @@ def phase_dp_ef(smi, device="cuda") -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the encoder-decoder family (phase whisper)
+# ---------------------------------------------------------------------------
+
+# whisper-tiny whole (src/repro/configs/archs.py:191-210): 4 encoder and 4
+# decoder layers, d 384, 6 heads, d_ff 1536, vocab 51,865, bf16.  The
+# encoder context is whisper's published 1500 frames (30 s of audio) and
+# the text context its 448 positions (arXiv:2212.04356).  Serving: 8 slots
+# x 448, family_traffic's 6 requests, each with its own seeded frames.
+# Training: batch 8 x 448, 1500 frames a row, 2 int4+EF DP steps at world
+# size 1, then 2 steps of make_train_step at n_micro 2.
+WHISPER = dict(frames=1500, max_len=448, slots=8, B=8, S=448, steps=2,
+               n_micro=2)
+
+
+def _frames(n, d, seed, device, rows=1) -> torch.Tensor:
+    """Seeded encoder frames (rows, n, d), float32, scale 0.5."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((rows, n, d), generator=g, device=device) * 0.5
+
+
+class _WithFrames:
+    """``SyntheticLM`` batches with seeded frames (B, n, d) added (the
+    reference's data source yields none)."""
+
+    def __init__(self, data, n, d):
+        self.data, self.n, self.d = data, n, d
+
+    def batch(self, step, device):
+        b = self.data.batch(step, device)
+        b["frames"] = _frames(self.n, self.d, SEED + 1000 + step, device,
+                              rows=self.data.global_batch)
+        return b
+
+
+def phase_whisper(smi) -> dict:
+    """whisper-tiny served and trained end to end: continuous batching
+    bitwise equal to serial, no kernel launched, a router losing a replica;
+    float32 decode against the full forward; int4+EF DP steps on the
+    transport kernels (launches = buckets x steps), bitwise equal to the
+    same steps on the plain transport, and make_train_step at n_micro 2.
+    Returns the transport kernels' launches on the kernel route's DP
+    steps."""
+    from repro_torch.configs import WHISPER_TINY
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.serve import ServeEngine
+
+    cfg, sizes, device = WHISPER_TINY, WHISPER, "cuda"
+    n, D = sizes["frames"], cfg.d_model
+    t_phase = time.perf_counter()
+    _free()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model = build_model(cfg, generator=gen, device=device)
+    param_bytes = sum(p.numel() * p.element_size() for p in model.leaves())
+    traffic = family_traffic(cfg.vocab_size)
+    extras = [{"frames": _frames(n, D, SEED + i, device)}
+              for i in range(len(traffic))]
+    template = {"frames": torch.empty((1, n, D), device="meta")}
+    make = lambda: ServeEngine(model, num_slots=sizes["slots"],
+                               max_len=sizes["max_len"],
+                               extras_template=template, device=device)
+
+    # the serving path: counters zeroed just before, read just after
+    transport.reset_launch_counts()
+    ops.reset_launch_counts()
+    engine = make()
+    t0 = time.perf_counter()
+    cont, prefills = serve_continuous(engine, traffic, torch.cuda.synchronize,
+                                      first=FAMILY_SERVE["first"],
+                                      extras=extras)
+    cont_s = time.perf_counter() - t0
+    launches = {**dict(transport.LAUNCHES), **ops.launch_counts()}
+    steps = engine.fit_rows()
+    del engine
+    peak_serve = torch.cuda.max_memory_allocated()
+    serial = serve_serial(make(), traffic, extras)
+    equal = [a == b for a, b in zip(cont, serial)]
+    if not all(equal):
+        raise AssertionError("whisper: continuous != serial for requests "
+                             f"{[i for i, e in enumerate(equal) if not e]}")
+    if any(launches.values()):
+        raise AssertionError(f"whisper: a kernel launched on the serving "
+                             f"path: {launches}")
+    router = serve_router_resume(model, device, traffic, serial, make=make,
+                                 extras=extras)
+    encoder_ms = []
+    for x in extras:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.init_decode(1, sizes["max_len"], batch=x)
+        torch.cuda.synchronize()
+        encoder_ms.append((time.perf_counter() - t0) * 1e3)
+    decode_ms = [sec * 1e3 for _, sec, _ in steps]
+    generated = sum(len(t) for t in cont)
+    serve = {
+        "requests": len(traffic), "frames_per_request": n,
+        "slots": sizes["slots"], "max_len": sizes["max_len"],
+        "prompt_tokens": sum(len(p) for p, _ in traffic),
+        "generated_tokens": generated, "continuous_s": cont_s,
+        "decode_steps": len(steps),
+        "decode_ms_per_step_median": statistics.median(decode_ms),
+        "decode_ms_per_step_min": min(decode_ms),
+        "decode_tokens_per_s": generated / (sum(decode_ms) / 1e3),
+        "prefill_ms_per_prompt_token": sum(sec for _, sec in prefills)
+        * 1e3 / sum(k for k, _ in prefills),
+        "encoder_ms_per_request_median": statistics.median(encoder_ms),
+        "encoder_ms_per_request": encoder_ms,
+        "peak_device_memory_bytes": peak_serve,
+        "continuous_equals_serial": True, "router": router,
+        "kernel_launches_on_this_path": launches,
+    }
+    del model
+    _free()
+
+    # float32 (TF32 off): teacher-forced decode against the full forward
+    cfg32 = dataclasses.replace(cfg, name=cfg.name + "-f32", dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model = build_model(cfg32, generator=gen, device=device)
+    check = _decode_vs_full(model, extras={"frames": _frames(
+        n, D, SEED + 500, device, rows=FAMILY_CHECK["B"])})
+    check["frames"] = n
+    check["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del model
+    _free()
+
+    # training: int4+EF DP steps on the transport kernels (counters zeroed
+    # just before, read just after) and on the plain transport, bitwise
+    # equal; then the microbatched train step
+    data = _WithFrames(SyntheticLM(cfg.vocab_size, sizes["S"], sizes["B"],
+                                   seed=SEED), n, D)
+    steps_n = sizes["steps"]
+    dp = _family_train(cfg, device, sizes=sizes, data=data,
+                       routes=("auto", "plain"))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model = build_model(cfg, generator=gen, device=device)
+    step = make_train_step(model, OPT, n_micro=sizes["n_micro"],
+                           device=device)
+    tstate = {"model": model, "opt": adamw_init(model.params())}
+    t_losses, t_times = [], []
+    for s_ in range(steps_n):
+        batch = data.batch(s_, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tstate, m = step(tstate, batch)
+        t_losses.append(float(m["loss"]))
+        t_times.append(time.perf_counter() - t0)
+    if not all(math.isfinite(l) for l in t_losses):
+        raise AssertionError(f"whisper: non-finite loss {t_losses}")
+    micro = {"n_micro": sizes["n_micro"], "losses": t_losses,
+             "step_ms": [t * 1e3 for t in t_times],
+             "ms_per_step": t_times[-1] * 1e3,
+             "peak_device_memory_bytes": torch.cuda.max_memory_allocated()}
+    del tstate, model
+    _free()
+    emit({"phase": "whisper", "config": cfg.name,
+          "encoder_layers": cfg.encoder_layers, "layers": cfg.num_layers,
+          "dtype": cfg.dtype, "params": cfg.param_count(),
+          "param_bytes": param_bytes, "nvidia_smi": smi, "serve": serve,
+          "decode_vs_full_f32": check,
+          "train": {"batch": [sizes["B"], sizes["S"]], "frames": n,
+                    "dp_int4_ef": dp, "make_train_step": micro},
+          "phase_s": time.perf_counter() - t_phase})
+    return dp["auto"]["launches"]
+
+
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
@@ -2374,6 +2578,7 @@ def main() -> None:
     family_launches = phase_families(smi)
     trainer_launches = phase_trainer(smi)
     dp_ef_launches = phase_dp_ef(smi)
+    whisper_launches = phase_whisper(smi)
     t4 = k["timing"][4]
     replaces = {"quantize_pack": "src/repro/kernels/transport.py:158",
                 "unpack_dequantize": "src/repro/kernels/transport.py:222"}
@@ -2389,6 +2594,8 @@ def main() -> None:
          # training driver (phase trainer)
          "launches_dp_ef": dp_ef_launches[name],
          "launches_trainer": trainer_launches[name],
+         # whisper-tiny's int4+EF DP steps (phase whisper)
+         "launches_whisper_train": whisper_launches[name],
          "max_abs_err": k["max_abs_err"],
          "ms": t4[name][0], "plain_ms": t4[name][1],
          "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],

@@ -1,8 +1,8 @@
 """The architectures the port runs, copied from ``repro/configs/archs.py``.
 
-The reference's nine decoder-only architectures, with their published
-values (``[source; verified-tier]`` as there); whisper-tiny, the
-encoder-decoder, is not carried yet.  ``reduced(cfg)`` produces the
+The reference's ten architectures, with their published values
+(``[source; verified-tier]`` as there): nine decoder-only and whisper-tiny,
+the encoder-decoder.  ``reduced(cfg)`` produces the
 same-family miniature the CPU tests run.  The ``*_2L`` / ``*_1S`` / ``*_4L``
 configurations are the full-width cuts ``chip_smoke.py`` runs on the card,
 each with its cut listed beside it.
@@ -16,7 +16,7 @@ from .base import MambaConfig, ModelConfig, MoEConfig, SubLayer
 
 __all__ = [
     "ARCHS", "MINICPM_2B", "MINICPM_2B_4L", "MINICPM_2B_8L", "CHIP_FAMILIES",
-    "RWKV6_1_6B_4L", "get_config", "reduced",
+    "RWKV6_1_6B_4L", "WHISPER_TINY", "get_config", "reduced",
 ]
 
 
@@ -192,6 +192,28 @@ RWKV6_1_6B = ModelConfig(
     tie_embeddings=False,
 )
 
+# --- audio -----------------------------------------------------------------
+
+# whisper-tiny: enc-dec, conv frontend stubbed (batch["frames"] holds the
+# frame embeddings) [arXiv:2212.04356; unverified]
+WHISPER_TINY = ModelConfig(
+    name="whisper-tiny",
+    family="audio",
+    num_layers=4,          # decoder layers
+    d_model=384,
+    num_heads=6,
+    num_kv_heads=6,
+    d_ff=1536,
+    vocab_size=51_865,
+    pattern=(SubLayer("attn"),),
+    encoder_layers=4,
+    encoder_pattern=(SubLayer("attn"),),
+    cross_attention=True,
+    frontend="audio_frames",
+    act="gelu",
+    tie_embeddings=True,
+)
+
 ARCHS: dict[str, ModelConfig] = {
     c.name: c
     for c in [
@@ -204,6 +226,7 @@ ARCHS: dict[str, ModelConfig] = {
         MOONSHOT_16B,
         DEEPSEEK_MOE_16B,
         RWKV6_1_6B,
+        WHISPER_TINY,
     ]
 }
 
@@ -263,8 +286,8 @@ RWKV6_1_6B_4L = dataclasses.replace(
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Same-family miniature for CPU tests: small width/depth, tiny vocab,
-    few experts, float32 -- structure (pattern, mixers, MoE) intact (the
-    JAX package's ``reduced``)."""
+    few experts, float32 -- structure (pattern, mixers, MoE, enc-dec)
+    intact (the JAX package's ``reduced``)."""
     pattern_len = len(cfg.pattern)
     changes = dict(
         name=cfg.name + "-smoke",
@@ -285,6 +308,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         )
     if cfg.mamba is not None:
         changes["mamba"] = MambaConfig(d_state=4, d_conv=4, expand=2)
+    if cfg.encoder_layers:
+        changes["encoder_layers"] = 2
     if cfg.mrope_sections:
         changes["mrope_sections"] = (4, 2, 2)
     if cfg.pattern[0].mixer == "rwkv6":

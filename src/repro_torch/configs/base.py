@@ -8,7 +8,9 @@ sliding-window attention, Mamba, RWKV6) with an FFN (dense GLU, MoE, or the
 RWKV channel-mix that comes with an RWKV6 mixer).  Uniform decoders use a
 1-sublayer pattern; gemma2 alternates (local, global); jamba uses a
 1-attn : 7-mamba block with MoE on every other sublayer.  The
-encoder-decoder family (whisper) is not carried yet.
+encoder-decoder family (whisper) adds an encoder stack of
+``encoder_layers`` sublayers of its own ``encoder_pattern`` and a
+cross-attention block in every decoder sublayer.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ class SubLayer:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | hybrid | ssm | vlm
+    family: str                   # dense | moe | hybrid | ssm | vlm | audio
     num_layers: int               # total sublayers
     d_model: int
     num_heads: int
@@ -75,10 +77,13 @@ class ModelConfig:
     mamba: MambaConfig | None = None
     rwkv_head_size: int = 64
 
-    # encoder-decoder (whisper): not carried by the port yet
+    # encoder-decoder (whisper)
     encoder_layers: int = 0
+    encoder_pattern: tuple[SubLayer, ...] = ()
     cross_attention: bool = False
-    frontend: str | None = None   # "vision_patches" stub: embeds input
+    # "audio_frames" | "vision_patches" stubs: precomputed frame embeddings
+    # (batch["frames"]) or token embeddings (batch["embeds"])
+    frontend: str | None = None
 
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
@@ -110,11 +115,6 @@ class ModelConfig:
         if self.remat not in ("full", "dots", "none"):
             raise ValueError(f"{self.name}: remat {self.remat!r} is not "
                              "one of full / dots / none")
-        if self.encoder_layers or self.cross_attention:
-            raise NotImplementedError(
-                f"{self.name}: the port carries decoder-only models; the "
-                "encoder-decoder family is not ported yet"
-            )
 
     @property
     def resolved_head_dim(self) -> int:
@@ -123,6 +123,10 @@ class ModelConfig:
     @property
     def num_super_layers(self) -> int:
         return self.num_layers // len(self.pattern)
+
+    @property
+    def is_decoder_only(self) -> bool:
+        return self.encoder_layers == 0
 
     @property
     def max_attention_window(self) -> int | None:
@@ -143,9 +147,9 @@ class ModelConfig:
         ) or self.name.startswith("gemma2")
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding, head, stack), as the
-        reference reckons it (no final norm; RWKV's decay LoRA
-        approximated)."""
+        """Analytic parameter count (embedding, head, stacks), as the
+        reference reckons it (no final or encoder norm, no cross-attention
+        norm; RWKV's decay LoRA approximated)."""
         d, hd = self.d_model, self.resolved_head_dim
         q = self.num_heads * hd
         kv = self.num_kv_heads * hd
@@ -186,7 +190,15 @@ class ModelConfig:
         per_pattern = sum(
             ffn_params(s) + mixer_params(s) + 2 * d for s in self.pattern
         )
-        return total + per_pattern * self.num_super_layers
+        total += per_pattern * self.num_super_layers
+        if self.encoder_layers:
+            enc_pattern = self.encoder_pattern or (SubLayer(),)
+            enc = sum(ffn_params(s) + mixer_params(s) + 2 * d
+                      for s in enc_pattern)
+            total += enc * self.encoder_layers // len(enc_pattern)
+            if self.cross_attention:
+                total += (d * (q + 2 * kv) + q * d) * self.num_layers
+        return total
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: only routed top-k + shared)."""

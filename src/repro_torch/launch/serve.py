@@ -11,10 +11,11 @@ is held against.
 With a multi-rank ``CommContext`` each rank serves its own rows of the
 batch (:func:`make_serve_shard`) and the early exit ("every sequence hit
 EOS") is agreed across the group each step, so every rank runs the same
-number of steps.
+number of steps.  An encoder-decoder arch takes its encoder frames as
+``batch_extras`` (single device only, as in the reference).
 
 Usage (on the card unless ``--device cpu``; ``--arch`` is any of the
-nine decoder-only architectures of ``repro_torch.configs.ARCHS``)::
+ten architectures of ``repro_torch.configs.ARCHS``)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \\
       --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
@@ -39,14 +40,15 @@ __all__ = ["make_serve_shard", "serve_batch", "main"]
 
 def make_serve_shard(model, ctx: comm.CommContext | None, *, gen_len: int,
                      max_len: int, eos_id: int | None = None):
-    """The per-rank serve program ``shard_fn(prompts (b, P)) -> (b,
-    gen_len)`` tokens: prefill, then the decode loop."""
+    """The per-rank serve program ``shard_fn(prompts (b, P), extras=None)
+    -> (b, gen_len)`` tokens: prefill, then the decode loop (``extras``:
+    an encoder-decoder's ``{"frames": (b, S_enc, D)}``)."""
     decode = make_decode_loop(model, ctx, gen_len=gen_len, eos_id=eos_id)
 
     @torch.no_grad()
-    def shard_fn(prompts):
+    def shard_fn(prompts, extras=None):
         b, p = prompts.shape
-        cache = model.init_decode(b, max_len)
+        cache = model.init_decode(b, max_len, batch=extras)
         for t in range(p - 1):  # teacher forcing; only the last logits count
             _, cache = model.decode_hidden(cache, prompts[:, t : t + 1])
         logits, cache = model.decode_step(cache, prompts[:, p - 1 :])
@@ -58,19 +60,31 @@ def make_serve_shard(model, ctx: comm.CommContext | None, *, gen_len: int,
 
 def serve_batch(model, prompts: torch.Tensor, *, gen_len: int,
                 max_len: int | None = None,
+                batch_extras: dict | None = None,
                 ctx: comm.CommContext | None = None,
                 eos_id: int | None = None, device=None) -> torch.Tensor:
     """prompts: (B, P) token ids.  Returns (B, gen_len) generated tokens.
 
-    With a multi-rank ``ctx``, ``prompts`` are this rank's rows and the
-    early exit is agreed by the group."""
+    ``batch_extras``: an encoder-decoder's ``{"frames": (B, S_enc, D)}``,
+    given to ``init_decode``.  With a multi-rank ``ctx``, ``prompts`` are
+    this rank's rows and the early exit is agreed by the group; that path
+    takes no extras."""
     device = require_on(model, device)
     B, P_len = prompts.shape
+    if batch_extras is not None:
+        if ctx is not None and ctx.topology.group > 1:
+            raise NotImplementedError(
+                "batch_extras (encoder frames) are not supported on the "
+                "multi-rank serve path yet"
+            )
+        batch_extras = {k: torch.as_tensor(v).to(device)
+                        for k, v in batch_extras.items()}
     shard_fn = make_serve_shard(
         model, ctx, gen_len=gen_len, max_len=max_len or (P_len + gen_len),
         eos_id=eos_id,
     )
-    return shard_fn(prompts.to(device=device, dtype=torch.long))
+    return shard_fn(prompts.to(device=device, dtype=torch.long),
+                    batch_extras)
 
 
 def main(argv=None) -> None:
@@ -96,9 +110,14 @@ def main(argv=None) -> None:
         np.random.default_rng(args.seed + 1).integers(
             0, cfg.vocab_size, (args.batch, args.prompt_len))
     )
+    extras = None
+    if cfg.encoder_layers:  # 16 seeded encoder frames a request
+        frames = np.random.default_rng(args.seed + 2).standard_normal(
+            (args.batch, 16, cfg.d_model)).astype(np.float32)
+        extras = {"frames": torch.from_numpy(frames)}
     t0 = time.perf_counter()
-    out = serve_batch(model, prompts, gen_len=args.gen, eos_id=args.eos_id,
-                      device=device)
+    out = serve_batch(model, prompts, gen_len=args.gen, batch_extras=extras,
+                      eos_id=args.eos_id, device=device)
     out = out.cpu()
     dt = time.perf_counter() - t0
     toks = args.batch * (args.prompt_len + args.gen)

@@ -13,7 +13,13 @@ The port of ``repro/launch/steps.py``:
   error feedback, end to end;
 * :func:`make_prefill_step` / :func:`make_serve_step`;
 * :func:`make_policy` and :func:`microbatch_split`, which size a cell on a
-  :class:`~repro_torch.launch.mesh.Mesh`.
+  :class:`~repro_torch.launch.mesh.Mesh`;
+* :func:`input_specs` / :func:`state_specs`: a cell's batch, parameters,
+  AdamW moments and decode cache as tensors on the ``meta`` device
+  (shapes and dtypes, no memory), for ``mesh=None``.
+
+A batch may carry an encoder-decoder's ``frames`` (B, S_enc, D): they are
+split into microbatches and ranks by rows, as every other leaf.
 
 A train step's state is ``{"model", "opt"[, "ef"]}``: the model holds the
 parameters, which the step updates in place with the AdamW moments.
@@ -21,6 +27,7 @@ parameters, which the step updates in place with the AdamW moments.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -28,17 +35,19 @@ import torch
 from .. import tree as tree_util
 from ..core import comm, grad_sync
 from ..core.collectives import _all_reduce
+from ..configs import SHAPES, get_config
+from ..configs.base import OptimizerConfig
 from ..device import require_on, resolve_device
-from ..models import build_model, init_params
+from ..models import Model, build_model, init_params
 from ..models.layers import head_dot
-from ..models.model import _final_hidden
+from ..models.model import _dtype, _final_hidden
 from ..models.sharding import ShardingPolicy
 from ..optim import adamw_init, adamw_update, ef_init, make_schedule
 from .mesh import dp_axes as mesh_dp_axes
 
 __all__ = ["make_policy", "microbatch_split", "make_train_step",
            "make_dp_train_step", "init_train_state", "make_prefill_step",
-           "make_serve_step"]
+           "make_serve_step", "input_specs", "state_specs"]
 
 
 def make_policy(cfg, mesh, *, seq_parallel: bool = False,
@@ -155,7 +164,9 @@ def init_train_state(cfg, opt_cfg, sync_cfg, *, params=None,
 
 def make_dp_train_step(cfg, opt_cfg, topology: comm.Topology,
                        sync_cfg: comm.CommPolicy, *, device=None):
-    """``step(state, batch) -> (state, metrics)`` for one rank.
+    """``step(state, batch) -> (state, metrics)`` for one rank; ``batch``
+    is this rank's rows of the global batch, as ``SyntheticLM(rank=,
+    world=)`` gives them (``frames`` too, where the batch carries them).
 
     The bucket plan is made once, from the parameter shapes (no memory:
     ``meta`` tensors), and every step runs exactly that plan
@@ -219,8 +230,9 @@ def make_dp_train_step(cfg, opt_cfg, topology: comm.Topology,
 
 def make_prefill_step(model, *, tail: int = 128, device=None):
     """``prefill_step(batch) -> logits`` (B, min(tail, S), V) float32: the
-    prompt's forward pass (``tokens``, or ``embeds`` with ``positions``),
-    logits for its last ``tail`` positions."""
+    prompt's forward pass (``tokens``, or ``embeds`` with ``positions``;
+    an encoder-decoder's ``frames`` with them), logits for its last
+    ``tail`` positions."""
     require_on(model, device)
 
     @torch.no_grad()
@@ -241,3 +253,85 @@ def make_serve_step(model, ctx: comm.CommContext | None = None, *,
 
     require_on(model, device)
     return greedy_step(model, ctx)
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs and state of a cell (meta tensors: shapes, no memory)
+# ---------------------------------------------------------------------------
+
+_MESH_SLICE = ("input_specs / state_specs with a mesh (sharded abstract "
+               "trees) come with executing ShardingPolicy on a mesh, a "
+               "later slice of the port")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(arch: str, shape_name: str,
+                mesh=None) -> dict[str, torch.Tensor]:
+    """The abstract batch of one (arch x shape) cell, as ``meta`` tensors
+    with the reference's shapes and dtypes: ``tokens`` int32 (B, S) (B, 1
+    for decode), or ``embeds`` (and (3, B, S) ``positions``) for the VLM
+    stub; ``frames`` (B, S, D) for an encoder-decoder; ``labels`` and
+    ``loss_mask`` for a train shape.  ``mesh`` must be None for now."""
+    if mesh is not None:
+        raise NotImplementedError(_MESH_SLICE)
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    B, S = shape.global_batch, shape.seq_len
+    act = _dtype(cfg)
+    batch: dict[str, torch.Tensor] = {}
+    if shape.kind == "decode":
+        if cfg.frontend == "vision_patches":
+            batch["embeds"] = _meta((B, 1, cfg.d_model), act)
+        else:
+            batch["tokens"] = _meta((B, 1), torch.int32)
+        if cfg.encoder_layers:  # enc-dec: encoder context at cache init
+            batch["frames"] = _meta((B, S, cfg.d_model), act)
+        return batch
+    if cfg.frontend == "vision_patches":
+        batch["embeds"] = _meta((B, S, cfg.d_model), act)
+        batch["positions"] = _meta((3, B, S), torch.int32)
+    else:
+        batch["tokens"] = _meta((B, S), torch.int32)
+    if cfg.encoder_layers:
+        batch["frames"] = _meta((B, S, cfg.d_model), act)
+    if shape.kind == "train":
+        batch["labels"] = _meta((B, S), torch.int32)
+        batch["loss_mask"] = _meta((B, S), torch.float32)
+    return batch
+
+
+def state_specs(arch: str, shape_name: str, mesh=None, *,
+                opt_cfg: OptimizerConfig | None = None,
+                cfg_overrides: dict | None = None):
+    """The abstract state of one cell: ``(model, policy, tree, opt_cfg)``
+    with ``tree`` = ``{"params", "opt"}`` for a train shape, ``{"params"}``
+    for prefill and ``{"params", "cache"}`` for decode (an
+    encoder-decoder's cache with ``enc_out``), every tensor on the
+    ``meta`` device and ``model`` a :class:`Model` over the meta
+    parameters.  The moments are bf16 above 1e11 parameters unless
+    ``opt_cfg`` says otherwise.  ``mesh`` must be None for now."""
+    if mesh is not None:
+        raise NotImplementedError(_MESH_SLICE)
+    cfg = get_config(arch)
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    shape = SHAPES[shape_name]
+    policy = make_policy(cfg, None)
+    opt_cfg = opt_cfg or OptimizerConfig(
+        moment_dtype="bfloat16" if cfg.param_count() > 1e11 else "float32"
+    )
+    model = Model(cfg, init_params(cfg, device="meta"))
+    out: dict = {"params": model.params()}
+    if shape.kind == "train":
+        out["opt"] = adamw_init(out["params"],
+                                moment_dtype=opt_cfg.moment_dtype)
+    if shape.kind == "decode":
+        batch = input_specs(arch, shape_name, None)
+        out["cache"] = model.init_decode(
+            shape.global_batch, shape.seq_len,
+            batch=batch if cfg.encoder_layers else None,
+        )
+    return model, policy, out, opt_cfg

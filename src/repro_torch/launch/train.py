@@ -7,6 +7,13 @@ LM data, with async atomic checkpoints, auto-resume and straggler
 monitoring (:class:`~repro_torch.runtime.ResumableLoop`).  It runs on the
 card unless asked for the CPU; running on a mesh is a later slice.
 
+An encoder-decoder arch (whisper) cannot train here: ``SyntheticLM``
+yields no encoder ``frames``, which its loss needs (the reference's
+``build_training`` fails with ``KeyError: 'frames'`` at its first step);
+:func:`build_training` refuses it up front.  Train it through
+:func:`~repro_torch.launch.steps.make_train_step` on batches that carry
+frames.
+
 The train state ``{"model", "opt"}`` is what the checkpoint holds: the
 model's parameters by name and the AdamW step and moments.  A restore
 fills the live tensors in place, so a resumed run continues in the same
@@ -50,7 +57,14 @@ def build_training(cfg, train_cfg: TrainConfig, *, ckpt_dir: str | Path,
     ``device`` (``cuda`` unless asked otherwise).  The parameters are drawn
     from ``train_cfg.seed``; a checkpoint in ``ckpt_dir`` is restored into
     them.  ``loop.run(n)`` trains up to step ``n``; ``loop.metrics_log``
-    holds each step's scalar metrics."""
+    holds each step's scalar metrics.  Raises ``ValueError`` for an
+    encoder-decoder arch (its data source yields no frames)."""
+    if cfg.encoder_layers:
+        raise ValueError(
+            f"{cfg.name}: build_training's SyntheticLM yields no encoder "
+            "frames; train an encoder-decoder through make_train_step on "
+            "batches that carry 'frames'"
+        )
     device = resolve_device(device)
     data = SyntheticLM(
         vocab_size=cfg.vocab_size,

@@ -1,17 +1,23 @@
 """Public model API: ``build_model(cfg, ...) -> Model`` (an ``nn.Module``).
 
-The port of the decoder-only path of ``repro/models/model.py``: dense,
-MoE, hybrid (Mamba + attention), SSM (RWKV6) and the VLM backbone (the
-vision frontend stubbed: precomputed embeddings and (3, B, S) M-RoPE
-positions).  The parameters are a tree with the reference's keys and
-shapes, e.g. for a dense model::
+The port of ``repro/models/model.py``: dense, MoE, hybrid (Mamba +
+attention), SSM (RWKV6), the VLM backbone (the vision frontend stubbed:
+precomputed embeddings and (3, B, S) M-RoPE positions) and the
+whisper-style encoder-decoder (the audio frontend stubbed: ``frames``
+(B, S_enc, D) are already embeddings; a non-causal encoder stack and its
+final norm give ``enc_out``, which every decoder sublayer's
+cross-attention block attends).  The parameters are a tree with the
+reference's keys and shapes, e.g. for a dense model::
 
     {"embedding": (V, D), "final_norm": (D,), ["lm_head": (D, V),]
      "stack": {"sub0": {"ffn": {"w_down", "w_gate", "w_up"},
                         "mixer": {"w_k", "w_o", "w_q", "w_v"},
                         "norm1", "norm2"}}}       # leaves (n_super, ...)
 
-held by :class:`Model` as ``nn.Parameter``s; :meth:`Model.leaves` lists
+(an encoder-decoder adds ``"encoder"``, a stack of the same form, and
+``"encoder_norm"`` (D,), and its decoder sublayers ``"norm_cross"`` and
+``"cross"`` {"w_k", "w_o", "w_q", "w_v"}), held by :class:`Model` as
+``nn.Parameter``s; :meth:`Model.leaves` lists
 them in the order ``jax.tree.flatten`` lists the reference's (sorted keys).
 The training loss is a sequence-chunked cross-entropy with float32
 logits through the (tied or untied) head, plus the MoE load-balance loss;
@@ -28,7 +34,9 @@ step.  The cache is a tree of tensors updated in place::
                         "pos": (n_super, B, size) int32}}}
 
 (a Mamba sublayer holds ``conv`` / ``state``, an RWKV6 one ``x_prev`` /
-``state`` / ``cm_x_prev``, every leaf ``(n_super, B, ...)``).
+``state`` / ``cm_x_prev``, every leaf ``(n_super, B, ...)``; an
+encoder-decoder's cache also holds ``"enc_out"`` (B, S_enc, D), computed
+once from the request's frames when the cache is made).
 :func:`cache_from_jax` / :func:`cache_to_jax` convert the reference's
 decode caches (its fixed-batch form with a scalar index, or the engine's
 slot-stacked form) to this one and back.
@@ -81,7 +89,7 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
     params = {
         "embedding": (emb * 0.02).to(dtype),
         "stack": tfm.init_stack(cfg, dtype, generator=generator,
-                                device=device),
+                                device=device, cross=cfg.cross_attention),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                   device=device),
     }
@@ -89,6 +97,14 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
         head = torch.randn((cfg.d_model, cfg.vocab_size), generator=generator,
                            device=device, dtype=torch.float32)
         params["lm_head"] = (head * 0.02).to(dtype)
+    if cfg.encoder_layers:
+        params["encoder"] = tfm.init_stack(
+            cfg, dtype, generator=generator, device=device,
+            n_layers=cfg.encoder_layers, pattern=cfg.encoder_pattern,
+        )
+        params["encoder_norm"] = torch.zeros((cfg.d_model,),
+                                             dtype=torch.float32,
+                                             device=device)
     return params
 
 
@@ -115,7 +131,8 @@ class Model(nn.Module):
 
     ``batch`` holds ``tokens`` (B, S), or ``embeds`` (B, S, D) (the VLM
     stub frontend) with ``labels``; optional ``positions`` ((B, S), or
-    (3, B, S) for M-RoPE) and ``loss_mask``."""
+    (3, B, S) for M-RoPE) and ``loss_mask``; an encoder-decoder also
+    ``frames`` (B, S_enc, D)."""
 
     def __init__(self, cfg, params: dict):
         super().__init__()
@@ -169,16 +186,27 @@ class Model(nn.Module):
         return softcap(head_dot(hidden, _head_weights(p, self.cfg)),
                        self.cfg.final_logit_softcap)
 
-    def init_decode(self, batch_size: int, max_len: int) -> dict:
+    @torch.no_grad()
+    def init_decode(self, batch_size: int, max_len: int,
+                    batch: dict | None = None) -> dict:
         """An empty decode cache for ``batch_size`` rows of ``max_len``
-        positions, every row at index 0."""
+        positions, every row at index 0.  An encoder-decoder needs
+        ``batch["frames"]`` (batch_size, S_enc, D): the cache holds their
+        encoder output ``enc_out``."""
         cfg = self.cfg
-        return {
+        cache = {
             "index": torch.zeros((batch_size,), dtype=torch.int32,
                                  device=self.device),
             "stack": tfm.init_stack_cache(cfg, batch_size, max_len,
                                           _dtype(cfg), device=self.device),
         }
+        if cfg.encoder_layers:
+            if batch is None or "frames" not in batch:
+                raise ValueError(f"{cfg.name}: an encoder-decoder's decode "
+                                 "cache needs the encoder frames "
+                                 "(batch['frames'])")
+            cache["enc_out"] = _encode(self.params(), batch["frames"], cfg)
+        return cache
 
     @torch.no_grad()
     def decode_hidden(self, cache: dict, tokens: torch.Tensor, *,
@@ -198,7 +226,8 @@ class Model(nn.Module):
         else:
             x = _embed_tokens(p, tokens, cfg)
         x, _ = tfm.stack_decode(p["stack"], x, cache["stack"], index,
-                                cfg=cfg, moe_per_row=moe_per_row)
+                                cfg=cfg, moe_per_row=moe_per_row,
+                                enc_out=cache.get("enc_out"))
         x = rms_norm(x, p["final_norm"], cfg.norm_eps)
         index.add_(1)
         return x, cache
@@ -226,9 +255,23 @@ def _head_weights(params, cfg):
     return params["lm_head"]
 
 
+def _encode(params, frames, cfg):
+    """The encoder's output ``enc_out`` (B, S_enc, D): ``frames`` (the stub
+    frontend's output) through the non-causal encoder stack (RoPE over
+    ``arange(S_enc)``) and its final norm."""
+    frames = frames.to(_dtype(cfg))
+    pos = torch.arange(frames.shape[1], device=frames.device)[None]
+    enc, _ = tfm.stack_apply(params["encoder"], frames, cfg=cfg,
+                             positions=pos, pattern=cfg.encoder_pattern,
+                             causal=False)
+    return rms_norm(enc, params["encoder_norm"], cfg.norm_eps)
+
+
 def _final_hidden(params, batch, cfg):
-    """Embed (or take ``batch["embeds"]``) -> stack -> final norm.  Returns
-    ``(hidden, aux)``."""
+    """[frames -> encoder ->] embed (or take ``batch["embeds"]``) -> stack
+    -> final norm.  Returns ``(hidden, aux)``."""
+    enc_out = (_encode(params, batch["frames"], cfg) if cfg.encoder_layers
+               else None)
     if "embeds" in batch:  # VLM stub frontend: precomputed embeddings
         x = batch["embeds"].to(_dtype(cfg))
     else:
@@ -238,7 +281,7 @@ def _final_hidden(params, batch, cfg):
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     x, aux = tfm.stack_apply(params["stack"], x, cfg=cfg,
-                             positions=positions)
+                             positions=positions, enc_out=enc_out)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -350,9 +393,10 @@ def cache_from_jax(tree_of_numpy: dict, device=None) -> dict:
 
     Takes the reference's fixed-batch cache (``model.init_decode``: scalar
     ``index``, leaves (n_super, B, ...), ``pos`` (n_super, size) shared by
-    the rows) or its engine's slot-stacked cache (a leading slot axis over
-    B=1 caches: ``index`` (slots,), leaves (slots, n_super, 1, ...), ``pos``
-    (slots, n_super, size))."""
+    the rows, ``enc_out`` (B, S_enc, D)) or its engine's slot-stacked cache
+    (a leading slot axis over B=1 caches: ``index`` (slots,), leaves
+    (slots, n_super, 1, ...), ``pos`` (slots, n_super, size), ``enc_out``
+    (slots, 1, S_enc, D))."""
     device = resolve_device(device)
     index = np.asarray(tree_of_numpy["index"])
     fixed = index.ndim == 0
@@ -373,8 +417,13 @@ def cache_from_jax(tree_of_numpy: dict, device=None) -> dict:
         out[name] = leaves
     if fixed:
         index = np.full((rows,), index)
-    return {"index": _tensor_from_numpy(index.astype(np.int32)).to(device),
-            "stack": out}
+    cache = {"index": _tensor_from_numpy(index.astype(np.int32)).to(device),
+             "stack": out}
+    if "enc_out" in tree_of_numpy:
+        enc = np.asarray(tree_of_numpy["enc_out"])
+        cache["enc_out"] = _tensor_from_numpy(enc if fixed else enc[:, 0]
+                                              ).to(device)
+    return cache
 
 
 def cache_to_jax(cache: dict, *, slot_stacked: bool = False) -> dict:
@@ -400,4 +449,8 @@ def cache_to_jax(cache: dict, *, slot_stacked: bool = False) -> dict:
         stack[name] = leaves
     if not slot_stacked:
         index = index[0]
-    return {"index": index, "stack": stack}
+    out = {"index": index, "stack": stack}
+    if "enc_out" in cache:
+        enc = to_np(cache["enc_out"])
+        out["enc_out"] = enc[:, None] if slot_stacked else enc
+    return out

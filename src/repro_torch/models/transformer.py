@@ -1,12 +1,15 @@
-"""Decoder stack: stacked per-layer parameters applied by a layer loop.
+"""Layer stacks: stacked per-layer parameters applied by a layer loop.
 
-The port of ``repro/models/transformer.py`` for decoder-only stacks.  A
-model is ``num_super_layers`` repetitions of the config's sublayer
-*pattern*; every sublayer's parameters keep the reference's leading
-``n_super`` dimension (``{"sub<i>": {...}}`` with leaves ``(n_super,
-...)``), so the gradient leaves have the reference's shapes; the
-reference's ``lax.scan`` over that dimension becomes a loop over the layer
-index.
+The port of ``repro/models/transformer.py``.  A model is
+``num_super_layers`` repetitions of the config's sublayer *pattern*;
+every sublayer's parameters keep the reference's leading ``n_super``
+dimension (``{"sub<i>": {...}}`` with leaves ``(n_super, ...)``), so the
+gradient leaves have the reference's shapes; the reference's ``lax.scan``
+over that dimension becomes a loop over the layer index.  An
+encoder-decoder (whisper) has a second stack, the encoder
+(``init_stack(n_layers=, pattern=)``, applied with ``causal=False``), and
+its decoder sublayers a cross-attention block after self-attention
+(``norm_cross``, ``cross``) over the encoder's output ``enc_out``.
 
 Mixer kinds: "attn" (global), "attn_local" (sliding window), "mamba",
 "rwkv6".  FFN kinds: "dense" GLU, "moe", and the implicit RWKV
@@ -43,7 +46,8 @@ def _window(cfg, sub):
     return cfg.sliding_window if sub.mixer == "attn_local" else None
 
 
-def _init_sublayer(sub, cfg, dtype, *, lead, generator, device):
+def _init_sublayer(sub, cfg, dtype, *, lead, generator, device,
+                   cross: bool = False):
     kw = dict(lead=lead, generator=generator, device=device)
     norm = lambda: torch.zeros(lead + (cfg.d_model,), dtype=torch.float32,
                                device=device)
@@ -54,6 +58,9 @@ def _init_sublayer(sub, cfg, dtype, *, lead, generator, device):
         p["mixer"] = mamba_mod.init_mamba(cfg, dtype, **kw)
     elif sub.mixer == "rwkv6":
         p["mixer"] = rwkv_mod.init_rwkv(cfg, dtype, **kw)
+    if cross:
+        p["norm_cross"] = norm()
+        p["cross"] = attn_mod.init_attention(cfg, dtype, cross=True, **kw)
     if sub.mixer == "rwkv6":
         p["ffn"] = rwkv_mod.init_rwkv_cm(cfg, dtype, **kw)
     elif sub.ffn == "dense":
@@ -68,13 +75,18 @@ def _init_sublayer(sub, cfg, dtype, *, lead, generator, device):
     return p
 
 
-def init_stack(cfg, dtype, *, generator, device):
-    """Stacked params: {"sub<i>": tree with leading n_super dim}."""
-    lead = (cfg.num_super_layers,)
+def init_stack(cfg, dtype, *, generator, device, n_layers: int | None = None,
+               pattern=None, cross: bool = False):
+    """Stacked params: {"sub<i>": tree with leading n_super dim}, for
+    ``n_layers`` sublayers of ``pattern`` (the decoder's by default);
+    ``cross`` adds each sublayer's cross-attention block."""
+    pattern = pattern if pattern is not None else cfg.pattern
+    lead = ((n_layers or cfg.num_layers) // len(pattern),)
     return {
         f"sub{i}": _init_sublayer(sub, cfg, dtype, lead=lead,
-                                  generator=generator, device=device)
-        for i, sub in enumerate(cfg.pattern)
+                                  generator=generator, device=device,
+                                  cross=cross)
+        for i, sub in enumerate(pattern)
     }
 
 
@@ -84,12 +96,20 @@ def _post(p, h, name, cfg):
     return h
 
 
-def _sublayer_full(p, x, sub, *, cfg, positions):
+def _cross(p, x, cfg, positions, enc_out):
+    """The cross-attention block: ``x`` plus attention over ``enc_out``."""
+    h = rms_norm(x, p["norm_cross"], cfg.norm_eps)
+    return x + attn_mod.attention_full(p["cross"], h, cfg=cfg,
+                                       positions=positions, causal=False,
+                                       kv_src=enc_out)
+
+
+def _sublayer_full(p, x, sub, *, cfg, positions, causal, enc_out):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if sub.mixer in ("attn", "attn_local"):
         h = attn_mod.attention_full(p["mixer"], h, cfg=cfg,
                                     positions=positions,
-                                    window=_window(cfg, sub))
+                                    window=_window(cfg, sub), causal=causal)
     elif sub.mixer == "mamba":
         h = mamba_mod.mamba_full(p["mixer"], h, cfg=cfg)
     elif sub.mixer == "rwkv6":
@@ -97,6 +117,8 @@ def _sublayer_full(p, x, sub, *, cfg, positions):
     else:
         h = torch.zeros_like(h)
     x = x + _post(p, h, "norm1_post", cfg)
+    if "cross" in p:
+        x = _cross(p, x, cfg, positions, enc_out)
 
     aux = None
     if "ffn" in p:
@@ -126,16 +148,18 @@ def _dots_saveable(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _super_layer(layer_params, x, aux, *, cfg, positions):
-    for i, sub in enumerate(cfg.pattern):
+def _super_layer(layer_params, x, aux, *, cfg, positions, pattern, causal,
+                 enc_out):
+    for i, sub in enumerate(pattern):
         x, a = _sublayer_full(layer_params[f"sub{i}"], x, sub, cfg=cfg,
-                              positions=positions)
+                              positions=positions, causal=causal,
+                              enc_out=enc_out)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
-def _layer_views(stack_params, n_layers: int) -> list:
+def _layer_views(stack_params) -> list:
     """Each layer's parameter tree, as views of the stacked leaves.  One
     ``unbind`` per leaf: its backward stacks the layers' gradients into one
     tensor, where indexing each layer would give every layer a zero-padded
@@ -144,7 +168,7 @@ def _layer_views(stack_params, n_layers: int) -> list:
     leaves, treedef = tree_util.flatten(stack_params)
     unbound = [t.unbind(0) for t in leaves]
     return [tree_util.unflatten(treedef, [u[i] for u in unbound])
-            for i in range(n_layers)]
+            for i in range(len(unbound[0]))]
 
 
 def _remat_wrap(body, remat: str):
@@ -168,16 +192,22 @@ def _remat_wrap(body, remat: str):
                                           use_reentrant=False, **kw)
 
 
-def stack_apply(stack_params, x: torch.Tensor, *, cfg, positions):
-    """Run the stack, one super-layer at a time under ``cfg.remat``.
-    Returns ``(hidden, aux)``: the MoE load-balance losses summed over
-    sublayers and layers (float32 zero without MoE), as the reference's
-    scan carries them."""
+def stack_apply(stack_params, x: torch.Tensor, *, cfg, positions,
+                pattern=None, causal: bool = True,
+                enc_out: torch.Tensor | None = None):
+    """Run the stack (of ``pattern``, the decoder's by default), one
+    super-layer at a time under ``cfg.remat``; ``causal`` false for the
+    encoder, ``enc_out`` the encoder's output for the cross-attention
+    blocks.  Returns ``(hidden, aux)``: the MoE load-balance losses summed
+    over sublayers and layers (float32 zero without MoE), as the
+    reference's scan carries them."""
+    pattern = pattern if pattern is not None else cfg.pattern
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer_params in _layer_views(stack_params, cfg.num_super_layers):
+    for layer_params in _layer_views(stack_params):
         body = _remat_wrap(
             functools.partial(_super_layer, layer_params, cfg=cfg,
-                              positions=positions),
+                              positions=positions, pattern=pattern,
+                              causal=causal, enc_out=enc_out),
             cfg.remat,
         )
         x, aux = body(x, aux)
@@ -207,7 +237,7 @@ def init_stack_cache(cfg, batch: int, max_len: int, dtype, *, device):
     return {f"sub{i}": one(sub) for i, sub in enumerate(cfg.pattern)}
 
 
-def _sublayer_decode(p, x, cache, sub, *, cfg, index, moe_groups):
+def _sublayer_decode(p, x, cache, sub, *, cfg, index, moe_groups, enc_out):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if sub.mixer in ("attn", "attn_local"):
         h, _ = attn_mod.attention_decode(p["mixer"], h, cache, index,
@@ -219,6 +249,11 @@ def _sublayer_decode(p, x, cache, sub, *, cfg, index, moe_groups):
     else:
         h = torch.zeros_like(h)
     x = x + _post(p, h, "norm1_post", cfg)
+    if "cross" in p:
+        h = rms_norm(x, p["norm_cross"], cfg.norm_eps)
+        h, _ = attn_mod.attention_decode(p["cross"], h, {}, index, cfg=cfg,
+                                         kv_src=enc_out)
+        x = x + h
 
     if "ffn" in p:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -234,16 +269,18 @@ def _sublayer_decode(p, x, cache, sub, *, cfg, index, moe_groups):
 
 
 def stack_decode(stack_params, x: torch.Tensor, cache, index, *, cfg,
-                 moe_per_row: bool = False):
+                 moe_per_row: bool = False,
+                 enc_out: torch.Tensor | None = None):
     """One-token decode through the stack; ``index`` (B,).  With
     ``moe_per_row`` every row routes its MoE tokens as its own group (the
-    serving engine's slots); otherwise the batch is one group.  Updates
-    ``cache`` in place and returns ``(x, cache)``."""
+    serving engine's slots); otherwise the batch is one group.  ``enc_out``
+    (B, S_enc, D): the encoder output the cross-attention blocks attend.
+    Updates ``cache`` in place and returns ``(x, cache)``."""
     moe_groups = x.shape[0] if moe_per_row else 1
     for layer in range(cfg.num_super_layers):
         for i, sub in enumerate(cfg.pattern):
             p = tree_util.tree_map(lambda t: t[layer], stack_params[f"sub{i}"])
             c = {k: t[layer] for k, t in cache[f"sub{i}"].items()}
             x = _sublayer_decode(p, x, c, sub, cfg=cfg, index=index,
-                                 moe_groups=moe_groups)
+                                 moe_groups=moe_groups, enc_out=enc_out)
     return x, cache

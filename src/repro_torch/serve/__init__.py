@@ -33,6 +33,10 @@ One replica, continuous batching (``device="cpu"`` to run without a card)::
     r1 = eng.submit(list(range(20)), max_new_tokens=8)
     tokens = eng.run()          # {rid: [tok, ...]}
 
+An encoder-decoder (whisper) engine takes ``extras_template`` (e.g.
+``{"frames": torch.empty((1, S_enc, D), device="meta")}``) and every
+request its own ``extras`` (``{"frames": (1, S_enc, D)}``).
+
 The layer-0 protocol check
 (:mod:`repro_torch.analysis.protocol_check`) explores this package's
 scheduler / router / health protocol exhaustively at small scope.

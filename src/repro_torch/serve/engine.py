@@ -29,6 +29,12 @@ The slot count is ragged over the serving group
 rows and the scheduler never fills the pad rows.  Every rank runs the same
 scheduler, prefills every admitted request and keeps the rows it owns.
 
+An encoder-decoder engine (``extras_template``) takes each request's
+encoder inputs as its ``extras`` (``{"frames": (1, S_enc, D)}``): the B=1
+prefill builds its cache, the encoder output ``enc_out`` included, from
+them, and the slot row takes that ``enc_out`` with the rest.  Free slot
+rows hold the encoder output of zero frames of the template's shape.
+
 A request that a dead replica's router re-planned here
 (:meth:`repro_torch.serve.router.Router.fail_replica`) arrives QUEUED
 with the tokens it had generated.  The engine prefills its prompt and
@@ -70,6 +76,10 @@ class ServeEngine:
       ctx: serving group; with more than one rank the head is
         tensor-parallel.  ``torch.distributed`` must span the group.
       max_queue: admission-control bound (None = unbounded).
+      extras_template: the shapes and dtypes (any tensors, ``meta`` ones
+        will do) of the per-request extras of an encoder-decoder arch,
+        e.g. ``{"frames": (1, S_enc, D)}``; requests must then carry
+        matching ``extras``, and must not without a template.
       device: where the engine runs (``cuda`` unless asked otherwise).
     """
 
@@ -84,11 +94,13 @@ class ServeEngine:
         slice_len: int = 1,
         ctx: comm.CommContext | None = None,
         max_queue: int | None = None,
+        extras_template: dict | None = None,
         clock: Callable[[], float] = time.monotonic,
         device=None,
     ):
         self.device = require_on(model, device)
         self.model = model
+        self.extras_template = extras_template
         self.max_len = int(max_len)
         self.slice_len = int(slice_len)
         self.eos_id = eos_id
@@ -108,7 +120,7 @@ class ServeEngine:
         self._rows = range(rank * self.b_max, (rank + 1) * self.b_max)
 
         # -- device state --------------------------------------------------
-        self._cache = model.init_decode(self.b_max, self.max_len)
+        self._cache = self._init_slot_cache()
         self._tok = torch.zeros((self.padded_slots, 1), dtype=torch.long,
                                 device=self.device)
         self._mask = np.zeros((self.padded_slots,), bool)
@@ -131,12 +143,48 @@ class ServeEngine:
         self.n_slices = 0
         self.n_decode_steps = 0
 
+    # -- extras ------------------------------------------------------------
+
+    def _b1_extras(self):
+        """Zero extras of the template's shapes and dtypes, or None without
+        a template."""
+        if self.extras_template is None:
+            return None
+        return {k: torch.zeros(t.shape, dtype=t.dtype, device=self.device)
+                for k, t in self.extras_template.items()}
+
+    def _init_slot_cache(self):
+        """The decode cache of ``b_max`` slot rows: a B=1 cache (the
+        encoder run once, on zero extras) broadcast over the rows, as the
+        reference does.  Stack leaves are (n_super, rows, ...); ``index``
+        and ``enc_out`` have the rows first."""
+        b1 = self.model.init_decode(1, self.max_len, batch=self._b1_extras())
+
+        def rows(x, axis):
+            shape = list(x.shape)
+            shape[axis] = self.b_max
+            return x.expand(shape).clone()
+
+        cache = {"index": rows(b1["index"], 0),
+                 "stack": tree.tree_map(lambda x: rows(x, 1), b1["stack"])}
+        if "enc_out" in b1:
+            cache["enc_out"] = rows(b1["enc_out"], 0)
+        return cache
+
+    def _request_extras(self, req: Request):
+        """``req``'s extras as tensors on this engine's device, or None."""
+        if req.extras is None:
+            return None
+        return {k: torch.as_tensor(v).to(self.device)
+                for k, v in req.extras.items()}
+
     # -- prefill ---------------------------------------------------------
 
     @torch.no_grad()
     def _prefill(self, req: Request):
         """B=1 prefill of ``req``'s prompt: ``(cache, first token)``."""
-        cache = self.model.init_decode(1, self.max_len)
+        cache = self.model.init_decode(1, self.max_len,
+                                       batch=self._request_extras(req))
         prompt = torch.tensor(req.prompt, dtype=torch.long,
                               device=self.device)
         hidden = None
@@ -162,6 +210,9 @@ class ServeEngine:
             for full, one in zip(tree.leaves(self._cache["stack"]),
                                  tree.leaves(cache_b1["stack"])):
                 full[:, row] = one[:, 0]
+            # the encoder output has no n_super axis: (rows, S_enc, D)
+            if "enc_out" in self._cache:
+                self._cache["enc_out"][row] = cache_b1["enc_out"][0]
         self._tok[slot, 0] = tok0
 
     # -- request lifecycle ---------------------------------------------------
@@ -169,14 +220,14 @@ class ServeEngine:
     def submit(self, prompt, max_new_tokens: int, *,
                arrival: float | None = None,
                extras: dict | None = None) -> Request:
-        if extras is not None:
+        if (extras is None) != (self.extras_template is None):
             raise ValueError(
-                "request extras (encoder inputs) need an encoder-decoder "
-                "arch, which the port does not carry"
+                "request extras must match the engine's extras_template"
             )
         return self.scheduler.submit(
             prompt, max_new_tokens,
             arrival=self.clock() if arrival is None else arrival,
+            extras=extras,
         )
 
     def evict(self, rid: int) -> Request:

@@ -109,14 +109,19 @@ def make_pair(name: str, seed: int = 0, **changes) -> Pair:
 
 
 def make_batch(cfg, B: int, S: int, seed: int = 1, *,
-               mrope_streams: bool = True) -> dict:
+               mrope_streams: bool = True, frames: int = 12) -> dict:
     """A numpy batch: ``tokens``, or for the VLM stub ``embeds``, ``labels``
     and (3, B, S) positions (three distinct streams unless
-    ``mrope_streams`` is false: then text positions)."""
+    ``mrope_streams`` is false: then text positions); an encoder-decoder
+    also gets ``frames`` (B, frames, D)."""
     rng = np.random.default_rng(seed)
     if cfg.frontend != "vision_patches":
-        return {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
             np.int32)}
+        if cfg.encoder_layers:
+            batch["frames"] = (rng.standard_normal(
+                (B, frames, cfg.d_model)) * 0.5).astype(np.float32)
+        return batch
     t = np.arange(S)
     streams = (t, t // 2, t % 5) if mrope_streams else (t, t, t)
     return {
@@ -133,6 +138,21 @@ def torch_batch(batch: dict) -> dict:
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
         out[k] = t.long() if v.dtype == np.int32 and k != "positions" else t
+    return out
+
+
+def rank_rows(batch: dict, rank: int, world: int) -> dict:
+    """Rank ``rank``'s rows of a global batch: rows ``[rank * b, (rank + 1)
+    * b)`` of every leaf, ``b = B / world`` -- the rows the reference's
+    ``P(topo.axes, None)`` batch spec gives chip ``node * ppn + lane``
+    (``frames`` too), which a rank's ``make_dp_train_step`` step takes."""
+    out = {}
+    for k, x in batch.items():
+        if x.shape[0] % world:
+            raise ValueError(f"batch leaf {k!r} of {x.shape[0]} rows does "
+                             f"not split over {world} ranks")
+        b = x.shape[0] // world
+        out[k] = x[rank * b : (rank + 1) * b]
     return out
 
 

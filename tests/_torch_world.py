@@ -31,6 +31,12 @@ of ``mode`` and writes its results to ``<out_dir>/rank<rank>.npz``:
   report, and ``serve_batch`` on each rank's row of a batch with the EOS
   exit agreed by the group.
 
+* ``serve_whisper`` — the same engine serving reduced whisper-tiny (an
+  encoder-decoder: each request carries its encoder frames,
+  ``extras_template``) on a 2x2 grid from the parameters in
+  ``<out_dir>/params0.npz``: :data:`WHISPER_WORKLOAD` one request at a
+  time and with continuous batching.
+
 * ``dp_checks`` — the reference's two DP-training acceptance checks
   (``_multidevice_checks.py::check_dp_training_ef_convergence`` and
   ``check_dp_training_nap_equals_psum``) on a 4x4 grid of 16 ranks from
@@ -94,6 +100,41 @@ def serve_streams(engine, workload=SERVE_WORKLOAD):
     out = engine.run()
     assert engine.idle
     return [out[r.rid] for r in reqs]
+
+
+#: reduced whisper-tiny's requests: (prompt, max_new_tokens, frames seed)
+WHISPER_WORKLOAD = (([3, 1, 4], 5, 0), ([1, 5, 9, 2, 6], 4, 1),
+                    ([2, 7, 1, 8], 6, 2))
+WHISPER_FRAMES = 12
+
+
+def whisper_extras(cfg, seed: int) -> dict:
+    """One request's seeded encoder frames, (1, WHISPER_FRAMES, D)
+    float32 numpy."""
+    rng = np.random.default_rng(1000 + seed)
+    return {"frames": (rng.standard_normal((1, WHISPER_FRAMES, cfg.d_model))
+                       * 0.5).astype(np.float32)}
+
+
+def whisper_streams(engine, cfg, workload=WHISPER_WORKLOAD):
+    """:func:`serve_streams` of requests that carry their frames."""
+    reqs = [engine.submit(p, b, extras=whisper_extras(cfg, f))
+            for p, b, f in workload[:2]]
+    engine.step()
+    reqs += [engine.submit(p, b, extras=whisper_extras(cfg, f))
+             for p, b, f in workload[2:]]
+    out = engine.run()
+    assert engine.idle
+    return [out[r.rid] for r in reqs]
+
+
+def whisper_serial(engine, cfg, workload=WHISPER_WORKLOAD):
+    """The same requests one at a time through ``engine``."""
+    out = []
+    for p, b, f in workload:
+        req = engine.submit(p, b, extras=whisper_extras(cfg, f))
+        out.append(engine.run()[req.rid])
+    return out
 
 
 def serve_serial(engine, workload=SERVE_WORKLOAD):
@@ -550,6 +591,39 @@ def run_serve(rank, world, out_dir):
     return out
 
 
+def run_serve_whisper(rank, world, out_dir):
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import WHISPER_TINY, reduced
+    from repro_torch.core import CommContext, Topology
+    from repro_torch.models import build_model, init_params, params_from_jax
+    from repro_torch.serve import PromptBuckets, ServeEngine
+
+    cfg = reduced(WHISPER_TINY)
+    with np.load(Path(out_dir) / "params0.npz") as z:
+        flat0 = [z[f"leaf{i}"] for i in range(len(z.files))]
+    _, td = tree.flatten(init_params(cfg, device="meta"))
+    model = build_model(cfg, params_from_jax(tree.unflatten(td, flat0), cfg,
+                                             "cpu"), device="cpu")
+    ctx = CommContext(Topology.from_world(*SERVE_GRIDS[world]))
+    template = {"frames": torch.empty((1, WHISPER_FRAMES, cfg.d_model),
+                                      device="meta")}
+
+    def engine():
+        return ServeEngine(model, num_slots=SERVE_SLOTS,
+                           max_len=SERVE_MAX_LEN,
+                           buckets=PromptBuckets(SERVE_BUCKETS), ctx=ctx,
+                           extras_template=template, device="cpu")
+
+    out = {}
+    for i, (s, c) in enumerate(zip(whisper_serial(engine(), cfg),
+                                   whisper_streams(engine(), cfg))):
+        out[f"serial{i}"] = np.asarray(s)
+        out[f"cont{i}"] = np.asarray(c)
+    return out
+
+
 def run_jax_serve(out_dir):
     os.environ["XLA_FLAGS"] = (
         "--xla_force_host_platform_device_count=4 "
@@ -855,6 +929,8 @@ def main():
             out = run_baselines(rank, world)
         elif mode == "serve":
             out = run_serve(rank, world, out_dir)
+        elif mode == "serve_whisper":
+            out = run_serve_whisper(rank, world, out_dir)
         elif mode == "dp_checks":
             out = run_dp_checks(rank, world, out_dir)
         else:

@@ -93,6 +93,17 @@ def test_guard_sees_the_training_driver_modules():
         assert port / rel in PORT_FILES, rel
 
 
+def test_guard_sees_the_encoder_decoder_modules():
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("configs/base.py", "configs/archs.py", "configs/__init__.py",
+                "models/attention.py", "models/transformer.py",
+                "models/model.py", "serve/engine.py", "serve/__init__.py",
+                "launch/serve.py", "launch/steps.py", "launch/train.py",
+                "launch/__init__.py"):
+        assert port / rel in PORT_FILES, rel
+    assert ROOT / "tools" / "probe_stack_backward.py" in PORT_FILES
+
+
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_launch_serve_runs_every_arch_on_cpu(arch, capsys):
     launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
@@ -155,6 +166,26 @@ def test_serving_entry_points_raise_without_cuda(no_cuda):
         cache_from_jax({"index": 0, "stack": {}})
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_serve.main(["--arch", "minicpm-2b", "--reduced"])
+
+
+def test_encoder_decoder_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.configs import WHISPER_TINY
+
+    cfg = reduced(WHISPER_TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.main(["--arch", "whisper-tiny", "--reduced"])
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    template = {"frames": torch.empty((1, 4, cfg.d_model), device="meta")}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(model, num_slots=1, max_len=8, extras_template=template)
+    eng = ServeEngine(model, num_slots=1, max_len=8,
+                      extras_template=template, device="cpu")
+    req = eng.submit([1, 2], 2, extras={"frames": torch.zeros(
+        (1, 4, cfg.d_model))})
+    assert len(eng.run()[req.rid]) == 2
 
 
 def test_serving_entry_points_run_on_cpu_when_asked(no_cuda, capsys):

@@ -39,8 +39,9 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 STEPS = 4
 
 
-def select_views(stack_params, n_layers: int) -> list:
+def select_views(stack_params) -> list:
     """The layers' parameter trees as one select per layer and leaf."""
+    n_layers = tree_util.leaves(stack_params)[0].shape[0]
     return [tree_util.tree_map(lambda t: t[i], stack_params)
             for i in range(n_layers)]
 
