@@ -185,6 +185,21 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    losses; each transport kernel launched buckets x steps times, counters
    zeroed before and read after), then 2 steps of ``make_train_step`` at
    n_micro 2: ms per step, peak memory.
+17. ``mesh``: the FSDP x TP layout on DTensor, at world size 1 (one card
+   holds one rank): ``torch.distributed`` on NCCL in this process
+   (``tcp://localhost``, a free port), destroyed at the phase's end.
+   ``launch.train.build_training`` on minicpm-2b-4l (bf16, published
+   widths) at 8 x 512 in microbatches of 2, 2 steps, on a (1, 1)
+   ``("data", "model")`` mesh and with ``mesh=None`` from the same seed:
+   losses and every parameter bitwise equal; each route's second-step ms,
+   peak memory and one more step under the profiler (launches, device
+   busy, idle share; tables ``chiprun_out/profile_mesh_<route>_step.txt``).
+   Then ``core.grad_sync.make_grad_sync`` on a (1, 1) ``("pod", "data")``
+   mesh over one step's gradient tree as DTensors, ``CommPolicy(nap, mean,
+   compress_bits=4)`` and ``8``: launch counters zeroed before each sync
+   and read after, each transport kernel launched once per compressed
+   bucket of the plan; the result bitwise equal to the same sync on the
+   plain transport and to ``sync_with_context`` on the local tensors.
 
 Then a line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits non-zero
@@ -2123,16 +2138,18 @@ def _train_cfg(steps, **kw):
     return TrainConfig(**base)
 
 
-def _trainer_run(cfg, steps, ckpt_dir, device="cuda", **kw) -> dict:
-    """``steps`` steps of ``launch.train.build_training``: per-step host
-    time (each step ends in the loss's copy to the host, after the AdamW
-    update), losses, peak memory and every kernel's launches."""
+def _trainer_run(cfg, steps, ckpt_dir, device="cuda", mesh=None,
+                 **kw) -> dict:
+    """``steps`` steps of ``launch.train.build_training`` (on ``mesh``, if
+    given): per-step host time (each step ends in the loss's copy to the
+    host, after the AdamW update), losses, peak memory and every kernel's
+    launches."""
     from repro_torch.launch import build_training
 
     _free()
     _reset_launches()
-    loop = build_training(cfg, _train_cfg(steps, **kw), ckpt_dir=ckpt_dir,
-                          device=device)
+    loop = build_training(cfg, _train_cfg(steps, **kw), mesh=mesh,
+                          ckpt_dir=ckpt_dir, device=device)
     start = loop.start_step
     loop.run(steps)
     launches = _all_launches()
@@ -2195,11 +2212,11 @@ def _resume_check(cfg, root: Path, device="cuda") -> dict:
     return out
 
 
-def _trainer_profile(loop) -> dict:
+def _trainer_profile(loop, table="profile_trainer_step.txt") -> dict:
     """One more step of the loop under ``torch.profiler``: device busy
     time by kernel class (GEMM / other), the idle share of the step's wall
     time and the number of kernel launches.  The table goes to
-    ``chiprun_out/profile_trainer_step.txt``."""
+    ``chiprun_out/<table>``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2218,7 +2235,7 @@ def _trainer_profile(loop) -> dict:
     busy = sum(ms for _, ms, _ in rows)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_trainer_step.txt").write_text(
+    (out / table).write_text(
         events.table(sort_by="self_cuda_time_total", row_limit=60))
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "gemm_ms": gemm,
             "idle_share": 1 - busy / wall_ms if busy else None,
@@ -2537,6 +2554,192 @@ def phase_whisper(smi) -> dict:
     return dp["auto"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# the FSDP x TP layout on a mesh (phase mesh)
+# ---------------------------------------------------------------------------
+
+# minicpm-2b at its published widths, depth cut to 4 layers as phase train
+# cuts it (MINICPM_2B_4L), bf16: build_training at 8 x 512 in microbatches
+# of 2, 2 steps, on a (1, 1) ("data", "model") mesh and with mesh=None; the
+# gradient sync on a (1, 1) ("pod", "data") mesh at int4 and int8.
+MESH = dict(batch=8, seq=512, microbatch=2, steps=2, bits=(4, 8))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _mesh_grad_sync(model, batch, device) -> dict:
+    """``make_grad_sync`` on a (1, 1) ``("pod", "data")`` mesh over the
+    gradient tree of one step as DTensors: per width, each transport
+    kernel's launches against the plan's compressed buckets, and the
+    result bitwise equal to the plain transport's and to
+    ``sync_with_context`` on the local tensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch import tree
+    from repro_torch.core import CommContext, grad_sync
+    from repro_torch.launch import make_mesh, mesh_topology
+
+    mesh = make_mesh((1, 1), ("pod", "data"))
+    dm = mesh.device_mesh(device)
+    params = model.params()
+    leaves, td = tree.flatten(params)
+    with model.policy.scope():
+        loss, _ = model(batch)
+        grads = torch.autograd.grad(loss, leaves)
+    local = [_local(g).detach() for g in grads]
+    del grads, loss
+    dgrads = tree.unflatten(td, [
+        DTensor.from_local(g, dm, [Replicate(), Replicate()],
+                           run_check=False) for g in local])
+    specs = tree.unflatten(td, [()] * len(local))
+    out = {}
+    for bits in MESH["bits"]:
+        runs = {}
+        for route in ("auto", "plain"):
+            policy = CommPolicy(algorithm="nap", mean=True,
+                                compress_bits=bits, transport_impl=route)
+            sync = grad_sync.make_grad_sync(
+                policy, mesh, data_axes=("pod", "data"), grad_specs=specs,
+                device=device)
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sync(dgrads)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = _all_launches()
+            runs[route] = (tree.leaves(res), launches, ms, sync.plan)
+        got, launches, ms, plan = runs["auto"]
+        plain, plain_launches, plain_ms, _ = runs["plain"]
+        ctx = CommContext(mesh_topology(1, 1),
+                          CommPolicy(algorithm="nap", mean=True,
+                                     compress_bits=bits))
+        direct = tree.leaves(grad_sync.sync_with_context(
+            tree.unflatten(td, local), ctx))
+        buckets = len(plan.buckets)
+        want = buckets if device != "cpu" else 0
+        row = {
+            "buckets": buckets, "ms": ms, "plain_ms": plain_ms,
+            "launches": {k: launches[k] for k in
+                         ("quantize_pack", "unpack_dequantize")},
+            "plain_launches": {k: plain_launches[k] for k in
+                               ("quantize_pack", "unpack_dequantize")},
+            "bitwise_equal_plain": all(
+                torch.equal(_local(a), _local(b)) for a, b in
+                zip(got, plain)),
+            "bitwise_equal_sync_with_context": all(
+                torch.equal(_local(a), b) for a, b in zip(got, direct)),
+            "dtensor_out": all(isinstance(a, DTensor) for a in got),
+        }
+        out[f"int{bits}"] = row
+        if not (row["bitwise_equal_plain"]
+                and row["bitwise_equal_sync_with_context"]
+                and row["dtensor_out"]):
+            raise AssertionError(f"make_grad_sync int{bits}: {row}")
+        if any(v != want for v in row["launches"].values()) or any(
+                row["plain_launches"].values()):
+            raise AssertionError(
+                f"make_grad_sync int{bits}: launches {row['launches']} "
+                f"(plain {row['plain_launches']}) for {buckets} buckets")
+    return out
+
+
+def phase_mesh(smi, cfg=MINICPM_2B_4L, device="cuda", sizes=MESH) -> dict:
+    """The FSDP x TP layout on DTensor at world size 1: ``torch.distributed``
+    on NCCL (gloo for a CPU rehearsal), one process, ``tcp://localhost``.
+    ``build_training`` on a (1, 1) ``("data", "model")`` mesh and with
+    ``mesh=None`` from the same seed (that one first, freed before the
+    other), 2 steps each: losses and every parameter bitwise equal (each
+    shard is the whole tensor); the second step's ms, peak memory, and one
+    more step of each under the profiler (launches, device busy, idle
+    share).  Then ``make_grad_sync``
+    (:func:`_mesh_grad_sync`).  The process group is destroyed at the end,
+    so later phases run as before."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_mesh
+
+    t_phase = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo" if device == "cpu" else "nccl",
+        init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        kw = dict(seq_len=sizes["seq"], global_batch=sizes["batch"],
+                  microbatch=sizes["microbatch"])
+        steps = sizes["steps"]
+        mesh = make_mesh((1, 1), ("data", "model"))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+            tmp = Path(tmp)
+            runs = {}
+            # mesh=None first, freed before the mesh run (each peak is its
+            # own run's); the parameters are compared on the host
+            for name, m in (("plain", None), ("mesh", mesh)):
+                run = _trainer_run(cfg, steps, tmp / name, device, mesh=m,
+                                   **kw)
+                loop = run["loop"]
+                params = [_local(p).detach().cpu()
+                          for p in loop.state["model"].leaves()]
+                summary = {
+                    "losses": run["losses"], "step_ms": run["step_ms"],
+                    "ms_per_step": run["step_ms"][-1],
+                    "peak_device_memory_bytes":
+                        run["peak_device_memory_bytes"],
+                    "launches": run["launches"]}
+                if device != "cpu":
+                    summary["profile"] = _trainer_profile(
+                        loop, table=f"profile_mesh_{name}_step.txt")
+                runs[name] = (summary, params, loop if m else None)
+                del run, loop
+            mesh_run, mesh_params, mesh_loop = runs["mesh"]
+            plain_run, plain_params, _ = runs["plain"]
+            bitwise = {
+                "losses": mesh_run["losses"] == plain_run["losses"],
+                "params": all(torch.equal(a, b) for a, b in
+                              zip(mesh_params, plain_params)),
+            }
+            model = mesh_loop.state["model"]
+            data = SyntheticLM(cfg.vocab_size, sizes["seq"], sizes["batch"],
+                               seed=SEED, mesh=mesh, batch_axes=("data",))
+            sync = _mesh_grad_sync(model, data.batch(0, device), device)
+            del runs, mesh_loop, model, mesh_params, plain_params
+            _free()
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "mesh", "config": cfg.name, "layers": cfg.num_layers,
+          "dtype": cfg.dtype, "world": 1,
+          "mesh": {"train": [[1, 1], ["data", "model"]],
+                   "grad_sync": [[1, 1], ["pod", "data"]]},
+          "batch": [sizes["batch"], sizes["seq"]],
+          "microbatch": sizes["microbatch"], "steps": steps,
+          "nvidia_smi": smi, "train": {"mesh": mesh_run,
+                                       "plain": plain_run},
+          "bitwise_equal": bitwise, "grad_sync": sync,
+          "phase_s": time.perf_counter() - t_phase})
+    if not all(bitwise.values()):
+        raise AssertionError(f"the mesh run differs from mesh=None: "
+                             f"{bitwise}")
+    if any(mesh_run["launches"].values()) or any(
+            plain_run["launches"].values()):
+        raise AssertionError("a kernel ran on the trainer's path")
+    return {k: sum(r["launches"][k] for r in sync.values())
+            for k in ("quantize_pack", "unpack_dequantize")}
+
+
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
@@ -2579,6 +2782,7 @@ def main() -> None:
     trainer_launches = phase_trainer(smi)
     dp_ef_launches = phase_dp_ef(smi)
     whisper_launches = phase_whisper(smi)
+    mesh_launches = phase_mesh(smi)
     t4 = k["timing"][4]
     replaces = {"quantize_pack": "src/repro/kernels/transport.py:158",
                 "unpack_dequantize": "src/repro/kernels/transport.py:222"}
@@ -2596,6 +2800,8 @@ def main() -> None:
          "launches_trainer": trainer_launches[name],
          # whisper-tiny's int4+EF DP steps (phase whisper)
          "launches_whisper_train": whisper_launches[name],
+         # make_grad_sync over DTensors at int4 and int8 (phase mesh)
+         "launches_mesh_grad_sync": mesh_launches[name],
          "max_abs_err": k["max_abs_err"],
          "ms": t4[name][0], "plain_ms": t4[name][1],
          "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],

@@ -16,6 +16,14 @@ the template's own tensors (and a module keeps its parameters); only an
 int leaf is replaced.  Async mode copies every leaf to the host at
 ``save`` (the snapshot) and writes on a worker thread.  ``writes`` records
 each finished write: its step, bytes on disk and seconds.
+
+A sharded state (DTensor leaves, a model on a mesh) is saved as full
+tensors: every rank gathers each leaf (the ranks call ``save`` together)
+and rank 0 alone writes, so the files do not depend on the layout.  A
+restore fills each template leaf with its own shard of the full array, so
+a checkpoint written on one mesh restores on another, or with no mesh, and
+the other way round; with a sharded template every rank waits for the
+others before it lists the checkpoints.
 """
 
 from __future__ import annotations
@@ -62,11 +70,31 @@ def _flatten(tree, prefix=""):
     return out
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _sharded(tree) -> bool:
+    return any(_is_dtensor(v) for v in _flatten(tree).values())
+
+
+def _writer() -> bool:
+    """This rank writes a sharded state's files (rank 0)."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(leaf) -> np.ndarray:
-    """A numpy snapshot of a leaf (bf16 as its 16-bit pattern)."""
+    """A numpy snapshot of a leaf (bf16 as its 16-bit pattern; a DTensor's
+    full value)."""
     if isinstance(leaf, int):
         return np.asarray(leaf, dtype=np.int64)
     t = leaf.detach()
+    if _is_dtensor(t):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
     return t.cpu().numpy().copy()
@@ -79,6 +107,14 @@ def _fill(arr: np.ndarray, tmpl: torch.Tensor) -> torch.Tensor:
     t = torch.from_numpy(np.array(arr, order="C"))
     if tmpl.dtype == torch.bfloat16:
         t = t.view(torch.bfloat16)
+    if _is_dtensor(tmpl):
+        from torch.distributed.tensor import distribute_tensor
+
+        # this rank's shard of the full array, in the template's layout
+        shard = distribute_tensor(t.to(tmpl.device), tmpl.device_mesh,
+                                  tmpl.placements, src_data_rank=None)
+        tmpl.to_local().copy_(shard.to_local())
+        return tmpl
     tmpl.copy_(t)
     return tmpl
 
@@ -138,6 +174,8 @@ class CheckpointManager:
     def save(self, step: int, state, *, meta: dict | None = None,
              block: bool = False):
         flat = {k: _to_host(v) for k, v in _flatten(state).items()}
+        if _sharded(state) and not _writer():
+            return
         if self.async_save and not block:
             self.wait()
             self._worker = threading.Thread(
@@ -205,6 +243,12 @@ class CheckpointManager:
         return _restore_into(template, flat)
 
     def restore_latest(self, template):
+        if _sharded(template):
+            import torch.distributed as dist
+
+            # rank 0's last write is complete before any rank looks
+            self.wait()
+            dist.barrier()
         step = self.latest_step()
         if step is None:
             return None, None

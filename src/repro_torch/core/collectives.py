@@ -66,6 +66,9 @@ __all__ = [
     "mla_allgather",
     "flat_reduce_scatter",
     "flat_allgather",
+    "auto_crossover_bytes",
+    "select_algorithm",
+    "hierarchical_allreduce",
     "ALL_OPS",
     "MLA_OPS",
 ]
@@ -169,21 +172,25 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def _ppermute(v: torch.Tensor, pairs, rank: int) -> torch.Tensor | None:
-    """One permutation round over the world group: every ``(src, dst)``
-    pair moves ``src``'s value to ``dst``.  Returns what this rank
-    received (``None`` when it is no destination)."""
+def _ppermute(v: torch.Tensor, pairs, rank: int,
+              peers=None) -> torch.Tensor | None:
+    """One permutation round over the grid: every ``(src, dst)`` pair of
+    grid indices moves ``src``'s value to ``dst`` (``peers`` maps a grid
+    index to its world rank, :class:`~repro_torch.core.comm.RankGroups`).
+    Returns what this rank received (``None`` when it is no
+    destination)."""
     flat = v.contiguous().reshape(-1)
     ops, recv = [], None
+    world = (lambda i: i) if peers is None else peers.__getitem__
     for src, dst in pairs:
         if src == rank and dst == rank:
             recv = flat.clone()
             continue
         if src == rank:
-            ops.append(dist.P2POp(dist.isend, flat, dst))
+            ops.append(dist.P2POp(dist.isend, flat, world(dst)))
         if dst == rank:
             recv = torch.empty_like(flat)
-            ops.append(dist.P2POp(dist.irecv, recv, src))
+            ops.append(dist.P2POp(dist.irecv, recv, world(src)))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
@@ -216,7 +223,7 @@ def nap_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
     ):
         acc = v if smask[rank] else torch.full_like(v, ident)
         for rnd, rmask in zip(step.rounds, rmasks):
-            recv = _ppermute(v, rnd, rank)
+            recv = _ppermute(v, rnd, rank, groups.peers)
             if rmask[rank]:
                 acc = fold(acc, recv)
         v = _all_reduce(acc, groups.intra, op)
@@ -228,14 +235,15 @@ def nap_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
 # ---------------------------------------------------------------------------
 
 
-def _run_p2p_schedule(x: torch.Tensor, sched, rank: int, op: str):
+def _run_p2p_schedule(x: torch.Tensor, sched, rank: int, op: str,
+                      peers=None):
     """Execute a :class:`napalg.P2PSchedule`: one ``batch_isend_irecv``
     round per step over the world group; a receiving rank folds the
     payload in (``combine``) or takes it."""
     fold = _f32_fold(_OPS[op][0], op, x.dtype)
     v = x
     for step, rmask in zip(sched.steps, napalg.p2p_recv_masks(sched)):
-        recv = _ppermute(v, step.pairs, rank)
+        recv = _ppermute(v, step.pairs, rank, peers)
         if rmask[rank]:
             v = fold(v, recv) if step.combine else recv
     return v
@@ -250,7 +258,7 @@ def rd_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
     step, the duplicate traffic NAP removes."""
     groups = topology.require_groups()
     sched = napalg.build_rd_schedule(topology.n_nodes, topology.ppn)
-    return _run_p2p_schedule(x, sched, groups.rank, op)
+    return _run_p2p_schedule(x, sched, groups.rank, op, groups.peers)
 
 
 def smp_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
@@ -260,7 +268,7 @@ def smp_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
     binomial broadcast back.  One active rank per node."""
     groups = topology.require_groups()
     sched = napalg.build_smp_schedule(topology.n_nodes, topology.ppn)
-    return _run_p2p_schedule(x, sched, groups.rank, op)
+    return _run_p2p_schedule(x, sched, groups.rank, op, groups.peers)
 
 
 # ---------------------------------------------------------------------------
@@ -286,12 +294,12 @@ def ring_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
     fwd = [(i, (i + 1) % p) for i in range(p)]
     acc = chunks[idx % p]
     for k in range(p - 1):
-        recv = _ppermute(acc, fwd, idx)
+        recv = _ppermute(acc, fwd, idx, groups.peers)
         acc = fold(recv, chunks[(idx - k - 1) % p])
     chunks[(idx + 1) % p] = acc
     cur = acc
     for k in range(p - 1):
-        cur = _ppermute(cur, fwd, idx)
+        cur = _ppermute(cur, fwd, idx, groups.peers)
         chunks[(idx - k) % p] = cur  # chunk (idx - k - 1) + 1 arrives
     out = chunks.reshape(-1)[:size]
     return out.reshape(x.shape).to(x.dtype)
@@ -502,3 +510,64 @@ def flat_allgather(x: torch.Tensor, *, topology,
     if elems is None:
         elems = shard.numel() * p
     return out[: int(elems)]
+
+
+# ---------------------------------------------------------------------------
+# deprecated shims the reference keeps importable
+# ---------------------------------------------------------------------------
+
+
+def __getattr__(name: str):
+    # ``ALGORITHMS`` is a read-only view of the engine registry
+    # (repro_torch.core.comm), which is the single source of truth
+    if name == "ALGORITHMS":
+        from . import comm
+
+        return comm.legacy_execute_table()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def auto_crossover_bytes(n: int, ppn: int, params=None) -> float:
+    """Legacy alias of :meth:`repro_torch.core.comm.Topology.crossover_bytes`
+    (``math.inf`` when NAP never loses)."""
+    from . import comm
+
+    return comm.Topology.of(n, ppn, params=params).crossover_bytes()
+
+
+def select_algorithm(nbytes: int, n: int, ppn: int, params=None,
+                     op: str = "sum",
+                     small_threshold_bytes: int | None = None) -> str:
+    """Legacy wrapper over :func:`repro_torch.core.comm.select_engine`: the
+    allreduce engine the dispatch picks for an ``nbytes`` payload."""
+    from . import comm
+
+    return comm.select_engine(
+        comm.Topology.of(n, ppn, params=params), int(nbytes), op=op,
+        small_threshold_bytes=small_threshold_bytes,
+    ).engine
+
+
+def hierarchical_allreduce(x: torch.Tensor, *, inter_axes, intra_axes, mesh,
+                           algorithm: str = "auto", op: str = "sum",
+                           small_threshold_bytes: int | None = None,
+                           pipeline_chunks: int | None = None
+                           ) -> torch.Tensor:
+    """Deprecated: allreduce of this rank's ``x`` over the ``inter_axes`` x
+    ``intra_axes`` grid of ``mesh`` (the reference reads the axes from its
+    ``shard_map``; the port takes the mesh).  Builds the
+    :class:`~repro_torch.core.comm.Topology` and a default policy, then
+    calls :meth:`~repro_torch.core.comm.CommContext.allreduce`.  Warns
+    once."""
+    from . import comm
+
+    comm.warn_deprecated_once(
+        "collectives.hierarchical_allreduce", "CommContext.allreduce"
+    )
+    ctx = comm.CommContext(
+        comm.Topology.from_axes(inter_axes, intra_axes, mesh=mesh),
+        comm.CommPolicy(algorithm=algorithm,
+                        small_threshold_bytes=small_threshold_bytes,
+                        pipeline_chunks=pipeline_chunks),
+    )
+    return ctx.allreduce(x, op=op)

@@ -32,6 +32,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import types
+import warnings
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -55,6 +57,8 @@ __all__ = [
     "CommPolicy",
     "CommContext",
     "COLLECTIVES",
+    "legacy_execute_table",
+    "warn_deprecated_once",
 ]
 
 #: the collective families the registry dispatches over
@@ -85,43 +89,80 @@ class Group:
 class RankGroups:
     """This rank's place in an ``(n_nodes, ppn)`` grid and its groups:
     ``intra`` spans its node (index = lane), ``inter`` spans its lane
-    across nodes (index = node), ``world`` the whole grid (index = rank)."""
+    across nodes (index = node), ``world`` the whole grid (index = rank).
+    ``peers`` maps a grid index to its ``torch.distributed`` rank when the
+    grid is part of a larger world (a mesh's DP grid at one ``model``
+    index); ``None`` when grid index and rank are one."""
 
     rank: int
     intra: Group
     inter: Group
     world: Group
+    peers: tuple[int, ...] | None = None
 
 
 def _build_groups(n_nodes: int, ppn: int) -> RankGroups:
+    """This rank's groups in the ``(n_nodes, ppn)`` grid of the whole
+    world (``rank = node * ppn + lane``)."""
+    return _build_grid_groups(np.arange(n_nodes * ppn).reshape(
+        1, n_nodes, ppn))
+
+
+def _build_grid_groups(grids: np.ndarray) -> RankGroups:
+    """This rank's groups in one of several disjoint ``(n_nodes, ppn)``
+    grids of ``torch.distributed`` ranks, ``grids`` of shape ``(copies,
+    n_nodes, ppn)`` (a mesh's DP grid at every index of its other axes).
+    Every rank creates every group, in the same order (``new_group`` is
+    collective over the world).  A single grid of the whole world in rank
+    order uses the world group itself."""
+    copies, n_nodes, ppn = grids.shape
     group = n_nodes * ppn
-    if group == 1:
+    if grids.size == 1:
         return RankGroups(0, Group.alone(), Group.alone(), Group.alone())
     if not dist.is_initialized():
         raise RuntimeError(
             f"a {n_nodes}x{ppn} topology needs torch.distributed "
             "initialised with one process per rank"
         )
-    if dist.get_world_size() != group:
+    if dist.get_world_size() != grids.size:
         raise ValueError(
-            f"world size {dist.get_world_size()} != {n_nodes}x{ppn} grid"
+            f"world size {dist.get_world_size()} != {grids.size} ranks of "
+            f"{copies} {n_nodes}x{ppn} grid(s)"
         )
-    rank = dist.get_rank()
-    node, lane = divmod(rank, ppn)
-    intra = inter = Group.alone()
-    # every rank creates every group, in the same order (new_group is
-    # collective over the world)
-    if ppn > 1:
-        for j in range(n_nodes):
-            pg = dist.new_group([j * ppn + r for r in range(ppn)])
-            if j == node:
-                intra = Group(pg, ppn, lane)
-    if n_nodes > 1:
-        for r in range(ppn):
-            pg = dist.new_group([j * ppn + r for j in range(n_nodes)])
-            if r == lane:
-                inter = Group(pg, n_nodes, node)
-    return RankGroups(rank, intra, inter, Group(dist.group.WORLD, group, rank))
+    whole = copies == 1 and bool(
+        (grids.reshape(-1) == np.arange(grids.size)).all())
+    (o,), (node,), (lane,) = np.nonzero(grids == dist.get_rank())
+    intra = inter = world = Group.alone()
+    for c in range(copies):
+        if ppn > 1:
+            for j in range(n_nodes):
+                pg = dist.new_group(grids[c, j].tolist())
+                if (c, j) == (o, node):
+                    intra = Group(pg, ppn, int(lane))
+        if n_nodes > 1:
+            for r in range(ppn):
+                pg = dist.new_group(grids[c, :, r].tolist())
+                if (c, r) == (o, lane):
+                    inter = Group(pg, n_nodes, int(node))
+        if group > 1:
+            pg = (dist.group.WORLD if whole
+                  else dist.new_group(grids[c].reshape(-1).tolist()))
+            if c == o:
+                world = Group(pg, group, int(node * ppn + lane))
+    return RankGroups(int(node * ppn + lane), intra, inter, world,
+                      peers=None if whole else tuple(
+                          int(r) for r in grids[o].reshape(-1)))
+
+
+# (axis names, mesh shape, inter, intra) -> (the default group they were
+# built in, this rank's groups): a mesh's groups are built once per world
+_GRID_GROUPS: dict = {}
+
+
+def _axes_tuple(axes) -> tuple[str, ...]:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 # ---------------------------------------------------------------------------
@@ -145,8 +186,12 @@ class Topology:
     groups: RankGroups | None = dataclasses.field(
         default=None, compare=False, repr=False
     )
+    inter_axes: tuple[str, ...] = ()
+    intra_axes: tuple[str, ...] = ()
 
     def __post_init__(self):
+        object.__setattr__(self, "inter_axes", _axes_tuple(self.inter_axes))
+        object.__setattr__(self, "intra_axes", _axes_tuple(self.intra_axes))
         if self.n_nodes < 1 or self.ppn < 1:
             raise ValueError(
                 f"topology needs n_nodes >= 1 and ppn >= 1, got "
@@ -175,12 +220,92 @@ class Topology:
             groups=_build_groups(n_nodes, ppn),
         )
 
+    @classmethod
+    def from_mesh(cls, mesh, *, inter_axes=None, intra_axes=None,
+                  params: pm.MachineParams | None = None) -> "Topology":
+        """The DP topology of a mesh: ``inter_axes`` the slow domain,
+        ``intra_axes`` the lanes (defaults from
+        :func:`repro_torch.launch.mesh.hierarchy_axes`: a ``"pod"`` axis is
+        the slow domain, ``"data"`` the lanes; overriding one level keeps
+        the other's default).  ``mesh`` needs only ``axis_names`` and
+        ``devices`` (a grid of ranks, row-major).
+
+        When ``torch.distributed`` runs a world of the mesh's size, this
+        rank's groups are built: one DP grid for every index of the mesh's
+        other axes (every ``model`` index has its own).  Otherwise the
+        topology is for planning only."""
+        if inter_axes is None or intra_axes is None:
+            from ..launch.mesh import hierarchy_axes
+
+            d_inter, d_intra = hierarchy_axes(mesh)
+            inter_axes = d_inter if inter_axes is None else inter_axes
+            intra_axes = d_intra if intra_axes is None else intra_axes
+        inter, intra = _axes_tuple(inter_axes), _axes_tuple(intra_axes)
+        overlap = set(inter) & set(intra)
+        if overlap:
+            raise ValueError(
+                f"axes {sorted(overlap)} appear in both inter_axes "
+                f"{inter} and intra_axes {intra}"
+            )
+        names = tuple(mesh.axis_names)
+        for ax in inter + intra:
+            if ax not in names:
+                raise ValueError(f"axis {ax!r} not in mesh axes {names}")
+        ranks = np.asarray(mesh.devices)
+        sizes = dict(zip(names, ranks.shape))
+        n = math.prod(sizes[a] for a in inter)
+        ppn = math.prod(sizes[a] for a in intra)
+        groups = None
+        key = (names, ranks.shape, inter, intra)
+        hit = _GRID_GROUPS.get(key)
+        if hit is not None and hit[0] is dist.group.WORLD:
+            groups = hit[1]
+        elif dist.is_initialized() and dist.get_world_size() == ranks.size:
+            others = [i for i, a in enumerate(names)
+                      if a not in inter + intra]
+            order = others + [names.index(a) for a in inter + intra]
+            grids = np.transpose(np.arange(ranks.size).reshape(ranks.shape),
+                                 order)
+            groups = _build_grid_groups(grids.reshape(-1, n, ppn))
+            _GRID_GROUPS[key] = (dist.group.WORLD, groups)
+        return cls(n, ppn, params=params or pm.TPU_V5E_POD, groups=groups,
+                   inter_axes=inter, intra_axes=intra)
+
+    @classmethod
+    def from_axes(cls, inter_axes, intra_axes, *, mesh,
+                  params: pm.MachineParams | None = None) -> "Topology":
+        """The topology over the named axes of ``mesh``, both levels
+        given.  The reference reads the axis sizes from the traced
+        ``shard_map`` it runs in; the port has no such context, so the
+        mesh is passed (the same as :meth:`from_mesh` with both levels)."""
+        return cls.from_mesh(mesh, inter_axes=_axes_tuple(inter_axes),
+                             intra_axes=_axes_tuple(intra_axes),
+                             params=params)
+
     # -- basic shape -------------------------------------------------------
 
     @property
     def group(self) -> int:
         """Total ranks — the reduction group size."""
         return self.n_nodes * self.ppn
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        """Joint (inter + intra) mesh axis names, slow domain first."""
+        return self.inter_axes + self.intra_axes
+
+    def require_axes(self) -> "Topology":
+        """Guard for execution entry points (returns ``self``): a
+        multi-rank topology with neither mesh axes nor process groups
+        (``Topology.of``, planning-only) cannot execute."""
+        if self.group > 1 and not self.axes and self.groups is None:
+            raise ValueError(
+                f"topology ({self.n_nodes} nodes x {self.ppn} lanes) "
+                "carries no mesh axis names, so collectives cannot "
+                "execute on it; build it with Topology.from_mesh / "
+                "Topology.from_world (Topology.of is planning-only)"
+            )
+        return self
 
     @property
     def has_slow_domain(self) -> bool:
@@ -229,6 +354,12 @@ class Topology:
         return pm.optimal_bucket_bytes(
             float(total_bytes), self.n_nodes, self.ppn, self.params,
             compute_seconds=compute_seconds, max_buckets=max_buckets,
+        )
+
+    def dispatched_cost(self, nbytes: float) -> float:
+        """Modeled cost of one auto-dispatched allreduce of ``nbytes``."""
+        return pm.dispatched_allreduce_cost(
+            float(nbytes), self.n_nodes, self.ppn, self.params
         )
 
     # -- schedules / geometry ---------------------------------------------
@@ -879,3 +1010,37 @@ class CommContext:
         return grad_sync.plan_for_tree(
             tree, cfg=self.policy, topology=self.topology
         )
+
+
+# ---------------------------------------------------------------------------
+# the legacy ``collectives.ALGORITHMS`` view and deprecation bookkeeping
+# ---------------------------------------------------------------------------
+
+#: the allreduce engines the old ``ALGORITHMS`` table named
+_LEGACY_NAMES = ("nap", "rd", "smp", "mla", "mla_pipelined", "psum")
+_LEGACY_VIEW = types.MappingProxyType(
+    {name: _REGISTRY["allreduce"][name].execute for name in _LEGACY_NAMES}
+)
+
+
+def legacy_execute_table():
+    """The old ``collectives.ALGORITHMS`` view, derived from the registry:
+    read-only (``ALGORITHMS["custom"] = fn`` raises); new engines register
+    through :func:`register_engine`."""
+    return _LEGACY_VIEW
+
+
+_DEPRECATION_WARNED: set[str] = set()
+
+
+def warn_deprecated_once(key: str, replacement: str) -> None:
+    """One ``DeprecationWarning`` per shim per process."""
+    if key in _DEPRECATION_WARNED:
+        return
+    _DEPRECATION_WARNED.add(key)
+    warnings.warn(
+        f"{key} is deprecated; use {replacement} "
+        f"(repro_torch.core.comm: Topology + CommContext)",
+        DeprecationWarning,
+        stacklevel=3,
+    )

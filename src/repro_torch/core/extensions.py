@@ -69,7 +69,7 @@ def nap_allgather(x: torch.Tensor, *, topology) -> torch.Tensor:
     rank = groups.rank
     for pairs, smask in _step_masks(napalg.build_nap_schedule(n, ppn),
                                     n * ppn):
-        recv = _ppermute(v, pairs, rank)
+        recv = _ppermute(v, pairs, rank, groups.peers)
         if smask[rank]:
             recv = v  # the rank's own subgroup keeps its block
         elif recv is None:
@@ -103,7 +103,7 @@ def nap_reduce_scatter(x: torch.Tensor, *, topology) -> torch.Tensor:
         sched = napalg.build_nap_schedule(n, ppn)
         for pairs, smask in reversed(_step_masks(sched, p)):
             v = intra_rs(v)
-            recv = _ppermute(v, pairs, rank)
+            recv = _ppermute(v, pairs, rank, groups.peers)
             if not smask[rank]:
                 v = torch.zeros_like(v) if recv is None else recv
     return intra_rs(v)

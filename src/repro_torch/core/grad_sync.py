@@ -32,6 +32,12 @@ the allreduce's inter-node bytes; :func:`unshard_grads` allgathers back.
 With ``compress_bits``, float leaves ride the packed transport's RS half
 (:func:`_compressed_reduce_scatter`) after one fused max-allreduce agrees
 every leaf's scale.
+
+On a mesh: :func:`sync_grads_local` syncs this rank's local gradients over
+named DP axes, and :func:`make_grad_sync` gives a callable over DTensor
+gradients (the reference's ``shard_map``-ed sync over global arrays):
+every rank syncs its local shards through :func:`sync_with_context` over
+the mesh's DP topology at its own index of the other axes.
 """
 
 from __future__ import annotations
@@ -49,11 +55,44 @@ from .. import tree as tree_util
 from ..kernels import transport
 
 __all__ = [
+    "GradSyncConfig",
     "sync_with_context",
     "sync_grads_sharded",
     "unshard_grads",
     "plan_for_tree",
+    "sync_grads_local",
+    "make_grad_sync",
+    "compressed_transport_dtype",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class GradSyncConfig(comm.CommPolicy):
+    """Deprecated alias of :class:`repro_torch.core.comm.CommPolicy`:
+    constructing one warns once and it behaves exactly like a
+    ``CommPolicy``.  New code: ``CommContext(topology,
+    CommPolicy(...)).sync_grads(grads)``."""
+
+    def __post_init__(self):
+        comm.warn_deprecated_once(
+            "grad_sync.GradSyncConfig",
+            "comm.CommPolicy with comm.CommContext",
+        )
+        super().__post_init__()
+
+
+def compressed_transport_dtype(group: int, bits: int) -> torch.dtype:
+    """Narrowest integer dtype that holds a ``group``-way sum of
+    ``bits``-bit quantised values: the sum is bounded by ``group * qmax``
+    with ``qmax = 2**(bits-1) - 1``, so int8 for one rank, int16 up to
+    257-way groups at 8 bits, int32 beyond, then int64 (which torch
+    honours; the reference raises there, as jax degrades int64 to int32
+    without x64)."""
+    peak = max(1, int(group)) * (2 ** (bits - 1) - 1)
+    for dt in (torch.int8, torch.int16, torch.int32):
+        if peak <= torch.iinfo(dt).max:
+            return dt
+    return torch.int64
 
 
 def _div(x: torch.Tensor, s: float) -> torch.Tensor:
@@ -520,3 +559,65 @@ def unshard_grads(shards: Any, like: Any, *, ctx: comm.CommContext) -> Any:
         full = ctx.allgather(s, elems=int(g.numel()))
         out.append(full.reshape(g.shape).to(g.dtype))
     return tree_util.unflatten(treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# on a mesh
+# ---------------------------------------------------------------------------
+
+
+def sync_grads_local(grads: Any, *, cfg: comm.CommPolicy, inter_axes,
+                     intra_axes, mesh,
+                     plan: bucketing.BucketPlan | None = None) -> Any:
+    """Synchronise this rank's local gradient tree over the named DP axes
+    of ``mesh`` (the reference's ``shard_map``-side entry point, which reads
+    the axes from its traced context; the port takes the mesh): the
+    :class:`comm.Topology` of those axes, a :class:`comm.CommContext` of
+    ``cfg``, then :func:`sync_with_context`."""
+    topo = comm.Topology.from_axes(inter_axes, intra_axes, mesh=mesh)
+    return sync_with_context(grads, comm.CommContext(topo, cfg), plan=plan)
+
+
+def make_grad_sync(cfg: comm.CommPolicy, mesh, *, data_axes, grad_specs,
+                   device=None):
+    """A gradient sync over DTensors: ``sync(grads) -> grads``.
+
+    ``grad_specs`` is a dict tree of specs like the gradients (each
+    leaf's layout on ``mesh``); leaves must not be sharded along
+    ``data_axes`` dims other than the stacked per-replica leading dim of
+    data parallelism.  Every rank syncs its local shards over
+    ``data_axes`` (``pod`` the slow domain, the rest the lanes) through
+    :func:`sync_with_context`, and the result keeps each leaf's layout.
+    The DTensors live on ``device`` (``cuda`` unless asked otherwise).
+    ``sync.plan`` is the bucket plan of the last call's local leaves,
+    ``sync.context`` the context it ran under."""
+    from torch.distributed.tensor import DTensor
+
+    from ..launch.mesh import POD_AXIS
+    from ..models.sharding import is_dtensor, placements, spec_leaves
+
+    device_mesh = mesh.device_mesh(device)
+    inter = tuple(a for a in data_axes if a == POD_AXIS)
+    intra = tuple(a for a in data_axes if a != POD_AXIS)
+    ctx = comm.CommContext(
+        comm.Topology.from_axes(inter, intra, mesh=mesh), cfg)
+    layouts = [placements(mesh, spec) for spec in spec_leaves(grad_specs)]
+
+    def sync(grads):
+        leaves, treedef = tree_util.flatten(grads)
+        if len(leaves) != len(layouts):
+            raise ValueError(f"{len(leaves)} gradient leaves for "
+                             f"{len(layouts)} specs")
+        local = [g.to_local() if is_dtensor(g) else g for g in leaves]
+        sync.plan = _plan(local, cfg, ctx.topology)
+        out = tree_util.leaves(sync_with_context(
+            tree_util.unflatten(treedef, local), ctx, plan=sync.plan))
+        return tree_util.unflatten(treedef, [
+            DTensor.from_local(t, device_mesh, pl, run_check=False,
+                               shape=g.shape, stride=g.stride())
+            for t, pl, g in zip(out, layouts, leaves)
+        ])
+
+    sync.plan = None
+    sync.context = ctx
+    return sync

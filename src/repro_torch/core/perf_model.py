@@ -21,6 +21,8 @@ import dataclasses
 import functools
 import math
 
+import numpy as np
+
 __all__ = [
     "MachineParams",
     "BLUE_WATERS",
@@ -56,6 +58,58 @@ class MachineParams:
     R_N: float      # per-node injection bandwidth     [B/s]
     gamma: float    # local reduction cost             [s/B]
     name: str = "machine"
+
+    @classmethod
+    def fit(cls, measurements, *, base: "MachineParams | None" = None,
+            name: str = "fitted") -> "MachineParams":
+        """Least-squares fit of the inter-node constants from measured
+        message times.
+
+        ``measurements``: rows ``(nbytes, seconds)`` or ``(nbytes,
+        seconds, active_per_node)``, each the wall time of ONE inter-node
+        message step with ``active_per_node`` concurrent senders per node
+        (default 1), which :func:`maxrate_message_cost` models as
+        ``alpha + k*s / min(R_N, k*R_b)``:
+
+        * ``alpha`` and ``R_b`` from a linear least-squares fit of
+          ``t = alpha + s/R_b`` over the ``k == 1`` rows (at least two
+          distinct sizes);
+        * ``R_N`` from the ``k > 1`` rows the per-process model cannot
+          explain (more than 2% slower): a through-origin fit of
+          ``t - alpha = k*s/R_N``; without such rows ``base``'s is kept.
+
+        The intra-node constants come from ``base`` (default
+        :data:`TPU_V5E_POD`): message timings do not observe them."""
+        base = base or TPU_V5E_POD
+        rows = [(float(r[0]), float(r[1]), int(r[2]) if len(r) > 2 else 1)
+                for r in measurements]
+        single = [(s, t) for s, t, k in rows if k <= 1]
+        if len({s for s, _ in single}) < 2:
+            raise ValueError(
+                "MachineParams.fit needs >= 2 single-sender (k == 1) "
+                "measurements at distinct sizes to identify alpha and R_b"
+            )
+        A = np.array([[1.0, s] for s, _ in single])
+        t = np.array([tt for _, tt in single])
+        (alpha, slope), *_ = np.linalg.lstsq(A, t, rcond=None)
+        alpha = max(float(alpha), 0.0)
+        if slope <= 0:
+            raise ValueError(
+                "measured times do not grow with message size; cannot "
+                "identify R_b (check the measurement units)"
+            )
+        R_b = 1.0 / float(slope)
+        R_N = base.R_N
+        limited = [(k * s, tt - alpha) for s, tt, k in rows
+                   if k > 1 and tt - alpha > (s / R_b) * 1.02]
+        if limited:
+            x = np.array([v for v, _ in limited])
+            y = np.array([v for _, v in limited])
+            inv_rn = float((x * y).sum() / (x * x).sum())
+            if inv_rn > 0:
+                R_N = 1.0 / inv_rn
+        return cls(alpha_l=base.alpha_l, beta_l=base.beta_l, alpha=alpha,
+                   R_b=R_b, R_N=R_N, gamma=base.gamma, name=name)
 
 
 # Gemini-class constants (order of magnitude from the max-rate papers).

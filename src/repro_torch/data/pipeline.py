@@ -1,11 +1,17 @@
 """Deterministic synthetic LM data, and a background prefetcher.
 
-The port of ``repro/data/pipeline.py`` without the JAX sharding.  Batch
-``step`` is a pure function of ``(seed, step)`` drawn with numpy, so both
-packages draw the same global batch.  A rank takes its rows
-in the order the reference's ``P(("pod", "data"))`` batch spec assigns them:
-rank ``node * ppn + lane`` holds rows ``[rank * b, (rank + 1) * b)`` with
-``b = global_batch / world``.
+The port of ``repro/data/pipeline.py``.  Batch ``step`` is a pure function
+of ``(seed, step)`` drawn with numpy, so both packages draw the same global
+batch.  Two ways to split it over ranks:
+
+* ``rank`` / ``world`` (data parallel with the paper's engines): a rank
+  takes its rows in the order the reference's ``P(("pod", "data"))``
+  batch spec assigns them: rank ``node * ppn + lane`` holds rows
+  ``[rank * b, (rank + 1) * b)`` with ``b = global_batch / world``;
+* ``mesh`` / ``batch_axes`` (a sharded model): :meth:`SyntheticLM.batch`
+  gives DTensors with the rows ``Shard``-ed over ``batch_axes``, the
+  reference's ``_place`` (``P(batch_axes, None)``), on the mesh's
+  ``DeviceMesh`` on the batch's device.
 
 :class:`Prefetcher` draws the next ``depth`` batches as numpy on a worker
 thread; they move to the device on the caller's thread, so the worker
@@ -34,8 +40,13 @@ class SyntheticLM:
     seed: int = 0
     rank: int = 0
     world: int = 1
+    mesh: object | None = None
+    batch_axes: tuple[str, ...] = ()
 
     def __post_init__(self):
+        if self.mesh is not None and self.world != 1:
+            raise ValueError("a batch is split by rank / world or placed on "
+                             "a mesh, not both")
         if self.global_batch % self.world:
             raise ValueError(
                 f"global batch {self.global_batch} does not split over "
@@ -87,8 +98,24 @@ class SyntheticLM:
         }
 
     def batch(self, step: int, device) -> dict[str, torch.Tensor]:
-        """This rank's rows of batch ``step``, as tensors on ``device``."""
-        return self.to_device(self.batch_numpy(step), device)
+        """This rank's rows of batch ``step``, as tensors on ``device``;
+        with a mesh, the global batch as DTensors placed over it."""
+        return self._place(self.to_device(self.batch_numpy(step), device))
+
+    def _place(self, batch: dict) -> dict:
+        if self.mesh is None:
+            return batch
+        from torch.distributed.tensor import distribute_tensor
+
+        from ..models.sharding import placements
+
+        spec = (tuple(self.batch_axes) or None, None)
+        out = {}
+        for k, t in batch.items():
+            dm = self.mesh.device_mesh(t.device)
+            out[k] = distribute_tensor(t, dm, placements(self.mesh, spec),
+                                       src_data_rank=None)
+        return out
 
 
 class Prefetcher:
@@ -121,7 +148,8 @@ class Prefetcher:
 
     def next(self) -> tuple[int, dict]:
         step, batch = self._q.get()
-        return step, self._source.to_device(batch, self._device)
+        src = self._source
+        return step, src._place(src.to_device(batch, self._device))
 
     def close(self):
         self._stop.set()

@@ -1,11 +1,15 @@
-from .mesh import Mesh, dp_axes, make_mesh, mesh_topology
+from .mesh import (
+    Mesh, dp_axes, hierarchy_axes, make_mesh, make_production_mesh,
+    mesh_topology,
+)
 from .steps import (
     init_train_state, input_specs, make_dp_train_step, make_policy,
     make_prefill_step, make_serve_step, make_train_step, microbatch_split,
     state_specs,
 )
 
-__all__ = ["Mesh", "dp_axes", "make_mesh", "mesh_topology",
+__all__ = ["Mesh", "dp_axes", "hierarchy_axes", "make_mesh",
+           "make_production_mesh", "mesh_topology",
            "init_train_state", "input_specs", "make_dp_train_step",
            "make_policy", "make_prefill_step", "make_serve_step",
            "make_train_step", "microbatch_split", "state_specs",

@@ -2,9 +2,14 @@
 
 The port of ``repro/launch/steps.py``:
 
-* :func:`make_train_step` — one rank's step with microbatched gradient
-  accumulation in float32, then AdamW (the single-device trainer that
-  :mod:`repro_torch.launch.train` drives);
+* :func:`make_train_step` — microbatched gradient accumulation in
+  float32, then AdamW (the trainer that :mod:`repro_torch.launch.train`
+  drives), on one device or, for a model built under a
+  :class:`~repro_torch.models.sharding.ShardingPolicy` on a mesh, over the
+  FSDP x TP layout on DTensor: with ``grad_shardings`` the gradients and
+  the accumulator stay in the parameters' layout (a reduce-scatter per
+  microbatch, not an all-reduce), as the reference's XLA-propagated FSDP
+  path does; the paper's engines are not on this path;
 * :func:`make_dp_train_step` — data parallel with the paper's
   collectives: parameters are replicated, every rank computes gradients on
   its rows of the batch, and the gradient buckets and the loss scalar are
@@ -16,7 +21,8 @@ The port of ``repro/launch/steps.py``:
   :class:`~repro_torch.launch.mesh.Mesh`;
 * :func:`input_specs` / :func:`state_specs`: a cell's batch, parameters,
   AdamW moments and decode cache as tensors on the ``meta`` device
-  (shapes and dtypes, no memory), for ``mesh=None``.
+  (shapes and dtypes, no memory); with a mesh every leaf carries its
+  fitted spec as ``leaf.spec`` (the reference's ``NamedSharding.spec``).
 
 A batch may carry an encoder-decoder's ``frames`` (B, S_enc, D): they are
 split into microbatches and ranks by rows, as every other leaf.
@@ -41,7 +47,7 @@ from ..device import require_on, resolve_device
 from ..models import Model, build_model, init_params
 from ..models.layers import head_dot
 from ..models.model import _dtype, _final_hidden
-from ..models.sharding import ShardingPolicy
+from ..models.sharding import ShardingPolicy, is_dtensor, spec_leaves
 from ..optim import adamw_init, adamw_update, ef_init, make_schedule
 from .mesh import dp_axes as mesh_dp_axes
 
@@ -51,7 +57,9 @@ __all__ = ["make_policy", "microbatch_split", "make_train_step",
 
 
 def make_policy(cfg, mesh, *, seq_parallel: bool = False,
-                mode: str = "train") -> ShardingPolicy:
+                mode: str = "train", device=None) -> ShardingPolicy:
+    """The policy of ``cfg`` on ``mesh``; its placements live on
+    ``device`` (``cuda`` unless asked otherwise)."""
     if mesh is None:
         return ShardingPolicy()
     dp = mesh_dp_axes(mesh)
@@ -62,6 +70,7 @@ def make_policy(cfg, mesh, *, seq_parallel: bool = False,
         fsdp_axes=dp,
         seq_parallel=seq_parallel,
         mode=mode,
+        device=None if device is None else str(torch.device(device)),
     )
 
 
@@ -98,7 +107,8 @@ def _microbatches(batch: dict, n_micro: int) -> list[dict]:
     return [{k: x[i] for k, x in split.items()} for i in range(n_micro)]
 
 
-def make_train_step(model, opt_cfg, *, n_micro: int = 1, device=None):
+def make_train_step(model, opt_cfg, *, n_micro: int = 1,
+                    grad_shardings=None, device=None):
     """``step(state, batch) -> (state, metrics)`` for ``model``'s state
     ``{"model", "opt"}`` (:func:`init_train_state`).
 
@@ -108,32 +118,56 @@ def make_train_step(model, opt_cfg, *, n_micro: int = 1, device=None):
     accumulator.  The step's gradients are that sum over ``n_micro`` and
     its loss the mean of the microbatch losses.  With ``n_micro == 1`` the
     gradients go to AdamW in the parameters' dtype.  Then AdamW at the
-    schedule's rate; the metrics are ``loss``, ``lr`` and AdamW's."""
+    schedule's rate; the metrics are ``loss``, ``lr`` and AdamW's.
+
+    On a mesh (a model built under a policy with one) the batch is a tree
+    of DTensors (``SyntheticLM(mesh=)``) and ``grad_shardings`` a spec
+    tree like the parameters (``policy.param_specs``): every gradient, and
+    the accumulator after each microbatch, is laid out by it.  The
+    metrics are plain tensors of the full values."""
     require_on(model, device)
     sched = make_schedule(opt_cfg)
+    policy = model.policy
+    specs = None
+    if grad_shardings is not None:
+        if policy.mesh is None:
+            raise ValueError("grad_shardings need a model on a mesh")
+        specs = spec_leaves(grad_shardings)
+
+    def constrain(tree):
+        if specs is None:
+            return tree
+        return [policy.constrain(t, sp) for t, sp in zip(tree, specs)]
 
     def train_step(state, batch):
         model, opt = state["model"], state["opt"]
         params = model.params()
         leaves, treedef = tree_util.flatten(params)
-        if n_micro == 1:
-            loss, _ = model(batch)
-            grads = list(torch.autograd.grad(loss, leaves))
-            loss = loss.detach()
-        else:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in leaves]
-            lsum = torch.zeros((), dtype=torch.float32, device=model.device)
-            for mb in _microbatches(batch, n_micro):
-                l, _ = model(mb)
-                g = torch.autograd.grad(l, leaves)
-                with torch.no_grad():
-                    for a, gg in zip(acc, g):
-                        a.add_(gg.to(torch.float32))
-                    lsum = lsum + l.detach()
-                del g, l
-            grads = [a.div_(n_micro) for a in acc]
-            loss = lsum / n_micro
+        with policy.scope():
+            if n_micro == 1:
+                loss, _ = model(batch)
+                grads = constrain(list(torch.autograd.grad(loss, leaves)))
+                loss = loss.detach()
+            else:
+                acc = constrain([
+                    torch.zeros_like(p.detach(), dtype=torch.float32,
+                                     memory_format=torch.contiguous_format)
+                    for p in leaves
+                ])
+                lsum = torch.zeros((), dtype=torch.float32,
+                                   device=model.device)
+                for mb in _microbatches(batch, n_micro):
+                    l, _ = model(mb)
+                    g = constrain(list(torch.autograd.grad(l, leaves)))
+                    with torch.no_grad():
+                        for a, gg in zip(acc, g):
+                            a.add_(gg.to(torch.float32))
+                        lsum = lsum + l.detach()
+                    del g, l
+                grads = [a.div_(n_micro) for a in acc]
+                loss = lsum / n_micro
+        if is_dtensor(loss):
+            loss = loss.full_tensor()
         grads = tree_util.unflatten(treedef, grads)
         lr = sched(opt.step)
         new_opt, om = adamw_update(
@@ -259,13 +293,19 @@ def make_serve_step(model, ctx: comm.CommContext | None = None, *,
 # abstract inputs and state of a cell (meta tensors: shapes, no memory)
 # ---------------------------------------------------------------------------
 
-_MESH_SLICE = ("input_specs / state_specs with a mesh (sharded abstract "
-               "trees) come with executing ShardingPolicy on a mesh, a "
-               "later slice of the port")
+def _fit_spec(shape, spec, mesh) -> tuple:
+    """``spec`` fitted to ``shape`` on ``mesh`` (axes that do not divide
+    their dim dropped, one entry per dim), as ``ShardingPolicy._fit``."""
+    return ShardingPolicy(mesh=mesh)._fit(tuple(shape), tuple(spec))
 
 
-def _meta(shape, dtype) -> torch.Tensor:
-    return torch.empty(shape, dtype=dtype, device="meta")
+def _meta(shape, dtype, mesh=None, spec=()) -> torch.Tensor:
+    """A ``meta`` tensor; with a mesh it carries its fitted spec as
+    ``.spec`` (the reference's ``ShapeDtypeStruct`` with a sharding)."""
+    t = torch.empty(shape, dtype=dtype, device="meta")
+    if mesh is not None:
+        t.spec = _fit_spec(shape, spec, mesh)
+    return t
 
 
 def input_specs(arch: str, shape_name: str,
@@ -274,37 +314,39 @@ def input_specs(arch: str, shape_name: str,
     with the reference's shapes and dtypes: ``tokens`` int32 (B, S) (B, 1
     for decode), or ``embeds`` (and (3, B, S) ``positions``) for the VLM
     stub; ``frames`` (B, S, D) for an encoder-decoder; ``labels`` and
-    ``loss_mask`` for a train shape.  ``mesh`` must be None for now."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_SLICE)
+    ``loss_mask`` for a train shape.  With a ``mesh`` each leaf's
+    ``.spec`` puts its batch rows over the mesh's DP axes."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     B, S = shape.global_batch, shape.seq_len
     act = _dtype(cfg)
+    dp = mesh_dp_axes(mesh) if mesh is not None else None
+    rows = lambda shp, dtype: _meta(shp, dtype, mesh, (dp,))  # noqa: E731
     batch: dict[str, torch.Tensor] = {}
     if shape.kind == "decode":
         if cfg.frontend == "vision_patches":
-            batch["embeds"] = _meta((B, 1, cfg.d_model), act)
+            batch["embeds"] = rows((B, 1, cfg.d_model), act)
         else:
-            batch["tokens"] = _meta((B, 1), torch.int32)
+            batch["tokens"] = rows((B, 1), torch.int32)
         if cfg.encoder_layers:  # enc-dec: encoder context at cache init
-            batch["frames"] = _meta((B, S, cfg.d_model), act)
+            batch["frames"] = rows((B, S, cfg.d_model), act)
         return batch
     if cfg.frontend == "vision_patches":
-        batch["embeds"] = _meta((B, S, cfg.d_model), act)
-        batch["positions"] = _meta((3, B, S), torch.int32)
+        batch["embeds"] = rows((B, S, cfg.d_model), act)
+        batch["positions"] = _meta((3, B, S), torch.int32, mesh, (None, dp))
     else:
-        batch["tokens"] = _meta((B, S), torch.int32)
+        batch["tokens"] = rows((B, S), torch.int32)
     if cfg.encoder_layers:
-        batch["frames"] = _meta((B, S, cfg.d_model), act)
+        batch["frames"] = rows((B, S, cfg.d_model), act)
     if shape.kind == "train":
-        batch["labels"] = _meta((B, S), torch.int32)
-        batch["loss_mask"] = _meta((B, S), torch.float32)
+        batch["labels"] = rows((B, S), torch.int32)
+        batch["loss_mask"] = rows((B, S), torch.float32)
     return batch
 
 
 def state_specs(arch: str, shape_name: str, mesh=None, *,
                 opt_cfg: OptimizerConfig | None = None,
+                seq_parallel: bool = False,
                 cfg_overrides: dict | None = None):
     """The abstract state of one cell: ``(model, policy, tree, opt_cfg)``
     with ``tree`` = ``{"params", "opt"}`` for a train shape, ``{"params"}``
@@ -312,18 +354,19 @@ def state_specs(arch: str, shape_name: str, mesh=None, *,
     encoder-decoder's cache with ``enc_out``), every tensor on the
     ``meta`` device and ``model`` a :class:`Model` over the meta
     parameters.  The moments are bf16 above 1e11 parameters unless
-    ``opt_cfg`` says otherwise.  ``mesh`` must be None for now."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_SLICE)
+    ``opt_cfg`` says otherwise.  With a ``mesh`` every parameter and
+    moment carries its ``param_specs`` entry as ``.spec`` and every cache
+    leaf its layout (the reference's ``_cache_spec``); the AdamW step is
+    an int and carries none."""
     cfg = get_config(arch)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
     shape = SHAPES[shape_name]
-    policy = make_policy(cfg, None)
+    policy = make_policy(cfg, mesh, seq_parallel=seq_parallel)
     opt_cfg = opt_cfg or OptimizerConfig(
         moment_dtype="bfloat16" if cfg.param_count() > 1e11 else "float32"
     )
-    model = Model(cfg, init_params(cfg, device="meta"))
+    model = Model(cfg, init_params(cfg, device="meta"), policy)
     out: dict = {"params": model.params()}
     if shape.kind == "train":
         out["opt"] = adamw_init(out["params"],
@@ -334,4 +377,63 @@ def state_specs(arch: str, shape_name: str, mesh=None, *,
             shape.global_batch, shape.seq_len,
             batch=batch if cfg.encoder_layers else None,
         )
+    if mesh is not None:
+        specs = spec_leaves(policy.param_specs(out["params"]))
+        for t, spec in zip(tree_util.leaves(out["params"]), specs):
+            t.spec = spec
+        if "opt" in out:
+            for t, spec in zip(out["opt"].mu + out["opt"].nu, specs * 2):
+                t.spec = spec
+        if "cache" in out:
+            _attach_cache_specs(out["cache"], policy)
     return model, policy, out, opt_cfg
+
+
+def _cache_spec(policy: ShardingPolicy, name: str, shape) -> tuple:
+    """The layout of one decode-cache leaf in train mode (the reference's
+    ``_cache_spec``; its serve2d branch is a later slice).  The port's
+    cache keeps one ``index`` and one ring ``pos`` row a batch row; those
+    rows go over the DP axes as every other batch-row leaf does."""
+    dp, tp = policy.dp, policy.tp_axis
+    ok = lambda dim, axes: dim % _axis_prod(policy.mesh, axes) == 0  # noqa
+
+    if name in ("k", "v"):  # (n_super, B, KV, size, hd)
+        _, B, KV, size, _ = shape
+        if tp and KV % policy.tp_size == 0 and ok(B, dp):
+            return (None, dp, tp, None, None)
+        if tp and size % policy.tp_size == 0:
+            return (None, dp if ok(B, dp) else None, None, tp, None)
+        return (None, dp if ok(B, dp) else None, None, None, None)
+    if name == "state":  # mamba (n,B,d_in,N) / rwkv (n,B,H,hd,hd)
+        spec = (None, dp if ok(shape[1], dp) else None)
+        if tp and shape[2] % policy.tp_size == 0:
+            spec += (tp,)
+        return spec
+    if name in ("conv", "x_prev", "cm_x_prev", "pos"):
+        return (None, dp if ok(shape[1], dp) else None, None)
+    if name == "enc_out":
+        return (dp if ok(shape[0], dp) else None, None, None)
+    if name == "index":
+        return (dp if ok(shape[0], dp) else None,)
+    return ()
+
+
+def _axis_prod(mesh, axes) -> int:
+    if not axes:
+        return 1
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    return math.prod(sizes[a] for a in axes)
+
+
+def _attach_cache_specs(cache: dict, policy: ShardingPolicy) -> None:
+    def walk(node, name):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+            return
+        node.spec = _fit_spec(node.shape,
+                              _cache_spec(policy, name, tuple(node.shape)),
+                              policy.mesh)
+
+    walk(cache, "")

@@ -1,11 +1,17 @@
-"""End-to-end training driver on one device.
+"""End-to-end training driver, on one device or on a mesh.
 
 The port of ``repro/launch/train.py``: :func:`build_training` drives
 :func:`~repro_torch.launch.steps.make_train_step` (microbatched gradient
 accumulation in float32, AdamW at the schedule's rate) over the synthetic
 LM data, with async atomic checkpoints, auto-resume and straggler
 monitoring (:class:`~repro_torch.runtime.ResumableLoop`).  It runs on the
-card unless asked for the CPU; running on a mesh is a later slice.
+card unless asked for the CPU.  With a ``mesh`` (every rank of a
+``torch.distributed`` world of the mesh's size calls it) the model takes
+the reference's FSDP x TP layout on DTensor: the parameters are drawn
+whole from the seed and then sharded (so a mesh run starts from the
+numbers of a ``mesh=None`` run), the batch rows are placed over the DP
+axes, and the gradients stay in the parameters' layout.  A sharded state
+is checkpointed as full tensors, written once.
 
 An encoder-decoder arch (whisper) cannot train here: ``SyntheticLM``
 yields no encoder ``frames``, which its loss needs (the reference's
@@ -44,21 +50,25 @@ from ..device import resolve_device
 from ..models import build_model
 from ..optim import adamw_init
 from ..runtime import ResumableLoop, StragglerMonitor
-from .steps import make_train_step
+from .mesh import dp_axes as mesh_dp_axes
+from .steps import make_policy, make_train_step
 
 __all__ = ["build_training", "main"]
 
 log = logging.getLogger("repro_torch.train")
 
 
-def build_training(cfg, train_cfg: TrainConfig, *, ckpt_dir: str | Path,
-                   device=None) -> ResumableLoop:
+def build_training(cfg, train_cfg: TrainConfig, *, mesh=None,
+                   ckpt_dir: str | Path, device=None) -> ResumableLoop:
     """The resumable training loop of ``cfg`` under ``train_cfg`` on
-    ``device`` (``cuda`` unless asked otherwise).  The parameters are drawn
-    from ``train_cfg.seed``; a checkpoint in ``ckpt_dir`` is restored into
-    them.  ``loop.run(n)`` trains up to step ``n``; ``loop.metrics_log``
-    holds each step's scalar metrics.  Raises ``ValueError`` for an
-    encoder-decoder arch (its data source yields no frames)."""
+    ``device`` (``cuda`` unless asked otherwise), on ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.Mesh`) or on one device.  The
+    parameters are drawn from ``train_cfg.seed``; a checkpoint in
+    ``ckpt_dir`` is restored into them (into their shards on a mesh,
+    whatever layout wrote it).  ``loop.run(n)`` trains up to step ``n``;
+    ``loop.metrics_log`` holds each step's scalar metrics.  Raises
+    ``ValueError`` for an encoder-decoder arch (its data source yields no
+    frames)."""
     if cfg.encoder_layers:
         raise ValueError(
             f"{cfg.name}: build_training's SyntheticLM yields no encoder "
@@ -66,19 +76,25 @@ def build_training(cfg, train_cfg: TrainConfig, *, ckpt_dir: str | Path,
             "batches that carry 'frames'"
         )
     device = resolve_device(device)
+    policy = make_policy(cfg, mesh, device=device)
     data = SyntheticLM(
         vocab_size=cfg.vocab_size,
         seq_len=train_cfg.seq_len,
         global_batch=train_cfg.global_batch,
         seed=train_cfg.seed,
+        mesh=mesh,
+        batch_axes=mesh_dp_axes(mesh) if mesh is not None else (),
     )
     n_micro = 1
     if train_cfg.microbatch:
         n_micro = train_cfg.global_batch // train_cfg.microbatch
     gen = torch.Generator(device=device).manual_seed(train_cfg.seed)
-    model = build_model(cfg, generator=gen, device=device)
-    train_step = make_train_step(model, train_cfg.optimizer, n_micro=n_micro,
-                                 device=device)
+    model = build_model(cfg, generator=gen, device=device, policy=policy)
+    train_step = make_train_step(
+        model, train_cfg.optimizer, n_micro=n_micro, device=device,
+        grad_shardings=(policy.param_specs(model.params())
+                        if mesh is not None else None),
+    )
 
     def make_state():
         opt = adamw_init(model.params(),

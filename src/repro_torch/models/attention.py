@@ -28,6 +28,7 @@ import math
 import torch
 
 from .layers import apply_rope, dense, init_dense, softcap
+from .sharding import ShardingPolicy
 
 __all__ = ["init_attention", "attention_full", "init_cache",
            "attention_decode"]
@@ -100,16 +101,41 @@ def _sdpa_chunk(q, k, v, cfg, q_pos, k_pos, window, causal=True):
     return out.to(q.dtype)
 
 
+def _attend_local(policy, attend, q, k, v):
+    """``attend(q, k, v)`` on each rank's own batch rows and KV heads:
+    q (B, K, G, S, h) and k / v (B, K, 1, Sk, h) laid out with the batch
+    over the DP axes and the KV heads over the TP axis (replicated over it
+    when they do not divide), through ``local_map``; the output (B, S,
+    K * G * h) has its rows and heads where the inputs had them.  Attention
+    is independent per row and head, and DTensor has no rule for the score
+    product's batched matmul over a sharded head dim, nor for merging a
+    sharded KV-head dim of size one into the heads."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    tp = policy.tp_axis if q.shape[1] % policy.tp_size == 0 else None
+    q, k, v = (policy.constrain(t, (policy.dp, tp)) for t in (q, k, v))
+    layout = list(q.placements)
+    out_layout = [Shard(2) if p == Shard(1) else p for p in layout]
+    # lists: one argument's (one output's) placements each
+    return local_map(attend, out_placements=out_layout,
+                     in_placements=(layout, layout, layout),
+                     device_mesh=policy.device_mesh)(q, k, v)
+
+
 def attention_full(params, x: torch.Tensor, *, cfg, positions: torch.Tensor,
                    window: int | None = None, causal: bool = True,
                    kv_src: torch.Tensor | None = None,
                    kv_positions: torch.Tensor | None = None,
-                   q_chunk: int = 1024) -> torch.Tensor:
+                   q_chunk: int = 1024,
+                   policy: ShardingPolicy = ShardingPolicy()) -> torch.Tensor:
     """Attention over the full sequence. x: (B, S, D); ``positions`` (B,
     S) (or (1, S)), or (3, B, S) with M-RoPE; ``window`` the sliding window
     of an ``attn_local`` sublayer; ``causal`` false for the encoder.  With
     ``kv_src`` (B, Sk, D) it is cross-attention: keys and values from
-    ``kv_src``, no RoPE, every key attended."""
+    ``kv_src``, no RoPE, every key attended.  ``policy`` (a
+    :class:`~repro_torch.models.sharding.ShardingPolicy`) lays out q as
+    ``heads`` and k / v as ``kv``."""
     B, S, _ = x.shape
     hd, K = cfg.resolved_head_dim, cfg.num_kv_heads
     G = cfg.num_heads // K
@@ -119,6 +145,9 @@ def attention_full(params, x: torch.Tensor, *, cfg, positions: torch.Tensor,
         kv_positions = positions
     q, k, v = _project_qkv(params, x, src, cfg, positions, kv_positions,
                            rope=not cross)
+    q = policy.act(q, kind="heads")
+    k = policy.act(k, kind="kv")
+    v = policy.act(v, kind="kv")
     # (B, S, K, G, h) -> (B, K, G, S, h); k/v -> (B, K, 1, Sk, h)
     q = q.reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4)
     k = k.permute(0, 2, 1, 3)[:, :, None]
@@ -128,13 +157,21 @@ def attention_full(params, x: torch.Tensor, *, cfg, positions: torch.Tensor,
     chunk = min(q_chunk, S)
     if S % chunk:
         chunk = S
-    outs = [
-        _sdpa_chunk(q[:, :, :, i : i + chunk], k, v, cfg,
-                    q_pos[i : i + chunk], k_pos, window, causal)
-        for i in range(0, S, chunk)
-    ]
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, cfg.num_heads * hd)
+
+    def attend(q, k, v):
+        outs = [
+            _sdpa_chunk(q[:, :, :, i : i + chunk], k, v, cfg,
+                        q_pos[i : i + chunk], k_pos, window, causal)
+            for i in range(0, S, chunk)
+        ]
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
+        # (B, K, G, S, h) -> (B, S, K * G * h), the heads KV-head-major
+        return out.permute(0, 3, 1, 2, 4).reshape(out.shape[0], S, -1)
+
+    if policy.mesh is not None:
+        out = _attend_local(policy, attend, q, k, v)
+    else:
+        out = attend(q, k, v)
     return dense(out, params["w_o"])
 
 

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 __all__ = [
     "softcap",
     "rms_norm",
+    "layer_norm",
     "mixed_bwd",
     "init_dense",
     "dense",
@@ -49,6 +50,20 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     x = x.to(torch.float32)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
+    return out.to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 over the last dim (the population variance),
+    back to ``x``'s dtype (exported; no model calls it, as in the
+    reference)."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    out = out * scale.to(torch.float32) + bias.to(torch.float32)
     return out.to(dtype)
 
 

@@ -52,6 +52,7 @@ from torch import nn
 
 from . import transformer as tfm
 from .layers import head_dot, mixed_bwd, rms_norm, softcap
+from .sharding import ShardingPolicy
 from .. import tree as tree_util
 from ..device import resolve_device
 
@@ -132,11 +133,20 @@ class Model(nn.Module):
     ``batch`` holds ``tokens`` (B, S), or ``embeds`` (B, S, D) (the VLM
     stub frontend) with ``labels``; optional ``positions`` ((B, S), or
     (3, B, S) for M-RoPE) and ``loss_mask``; an encoder-decoder also
-    ``frames`` (B, S_enc, D)."""
+    ``frames`` (B, S_enc, D).
 
-    def __init__(self, cfg, params: dict):
+    With a :class:`~repro_torch.models.sharding.ShardingPolicy` on a mesh
+    the parameters are DTensors laid out by the policy's ``param_specs``,
+    the batch is placed by the caller (``SyntheticLM(mesh=)``), and the
+    forward pass constrains its activations where the reference does
+    (``hidden`` after the embedding and at the top of every super-layer,
+    ``heads`` / ``kv`` in attention, ``logits`` in the loss); the tensors
+    it makes itself (positions, masks) count as replicated."""
+
+    def __init__(self, cfg, params: dict, policy: ShardingPolicy | None = None):
         super().__init__()
         self.cfg = cfg
+        self.policy = policy or ShardingPolicy()
         self.root = _Node(params)
 
     def params(self) -> dict:
@@ -150,13 +160,13 @@ class Model(nn.Module):
     def forward(self, batch: dict):
         # the config's bf16_bwd lever: the projections of this pass take
         # the bf16 backward (the reference's ``Model.loss``)
-        with mixed_bwd(self.cfg.bf16_bwd):
+        with mixed_bwd(self.cfg.bf16_bwd), self.policy.scope():
             return self._loss(batch)
 
     def _loss(self, batch: dict):
         cfg = self.cfg
         p = self.params()
-        hidden, aux = _final_hidden(p, batch, cfg)
+        hidden, aux = _final_hidden(p, batch, cfg, self.policy)
         labels = batch.get("labels")
         if labels is None:
             labels = torch.nn.functional.pad(batch["tokens"][:, 1:], (0, 1))
@@ -165,7 +175,7 @@ class Model(nn.Module):
             mask = torch.ones(labels.shape, dtype=torch.float32,
                               device=labels.device)
         ce = _chunked_loss(hidden, _head_weights(p, cfg), labels, mask,
-                           cap=cfg.final_logit_softcap)
+                           cap=cfg.final_logit_softcap, policy=self.policy)
         total = ce + aux
         return total, {"loss": total, "ce": ce, "aux": aux}
 
@@ -182,9 +192,11 @@ class Model(nn.Module):
     def logits(self, batch: dict) -> torch.Tensor:
         """Full float32 logits (B, S, V) of ``batch`` (small use)."""
         p = self.params()
-        hidden, _ = _final_hidden(p, batch, self.cfg)
-        return softcap(head_dot(hidden, _head_weights(p, self.cfg)),
-                       self.cfg.final_logit_softcap)
+        with self.policy.scope():
+            hidden, _ = _final_hidden(p, batch, self.cfg, self.policy)
+            logits = softcap(head_dot(hidden, _head_weights(p, self.cfg)),
+                             self.cfg.final_logit_softcap)
+            return self.policy.act(logits, kind="logits")
 
     @torch.no_grad()
     def init_decode(self, batch_size: int, max_len: int,
@@ -255,7 +267,7 @@ def _head_weights(params, cfg):
     return params["lm_head"]
 
 
-def _encode(params, frames, cfg):
+def _encode(params, frames, cfg, policy=ShardingPolicy()):
     """The encoder's output ``enc_out`` (B, S_enc, D): ``frames`` (the stub
     frontend's output) through the non-causal encoder stack (RoPE over
     ``arange(S_enc)``) and its final norm."""
@@ -263,30 +275,37 @@ def _encode(params, frames, cfg):
     pos = torch.arange(frames.shape[1], device=frames.device)[None]
     enc, _ = tfm.stack_apply(params["encoder"], frames, cfg=cfg,
                              positions=pos, pattern=cfg.encoder_pattern,
-                             causal=False)
+                             causal=False, policy=policy)
     return rms_norm(enc, params["encoder_norm"], cfg.norm_eps)
 
 
-def _final_hidden(params, batch, cfg):
+def _final_hidden(params, batch, cfg, policy=ShardingPolicy()):
     """[frames -> encoder ->] embed (or take ``batch["embeds"]``) -> stack
     -> final norm.  Returns ``(hidden, aux)``."""
-    enc_out = (_encode(params, batch["frames"], cfg) if cfg.encoder_layers
-               else None)
+    enc_out = (_encode(params, batch["frames"], cfg, policy)
+               if cfg.encoder_layers else None)
     if "embeds" in batch:  # VLM stub frontend: precomputed embeddings
         x = batch["embeds"].to(_dtype(cfg))
     else:
-        x = _embed_tokens(params, batch["tokens"], cfg)
+        # on a mesh the lookup takes replicated ids (DTensor's index_put
+        # rule fails on batch-sharded ids in the backward); the hidden
+        # state is laid out by batch right after
+        x = _embed_tokens(params, policy.constrain(batch["tokens"], ()), cfg)
     B, S = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    x = policy.act(x, kind="hidden")
     x, aux = tfm.stack_apply(params["stack"], x, cfg=cfg,
-                             positions=positions, enc_out=enc_out)
+                             positions=positions, enc_out=enc_out,
+                             policy=policy)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
-def _chunked_loss(hidden, head_w, labels, mask, chunk=512, cap=None):
-    """CE over sequence chunks; logits (B, chunk, V) only, never (B, S, V)."""
+def _chunked_loss(hidden, head_w, labels, mask, chunk=512, cap=None,
+                  policy=ShardingPolicy()):
+    """CE over sequence chunks; logits (B, chunk, V) only, never (B, S, V);
+    ``policy`` lays the logits out as ``logits``."""
     B, S, D = hidden.shape
     chunk = min(chunk, S)
     if S % chunk:
@@ -297,8 +316,12 @@ def _chunked_loss(hidden, head_w, labels, mask, chunk=512, cap=None):
         y = labels[:, i : i + chunk]
         m = mask[:, i : i + chunk]
         logits = softcap(head_dot(h, head_w.to(h.dtype)), cap)
+        logits = policy.act(logits, kind="logits")
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, y[..., None])[..., 0]
+        # on a mesh, vocab-sharded logits gather to a masked partial sum:
+        # reduce it while it still has the gather's shape
+        gold = policy.constrain(torch.gather(logits, -1, y[..., None]),
+                                (policy.dp, None, None))[..., 0]
         part, c = ((logz - gold) * m).sum(), m.sum()
         nll = part if nll is None else nll + part
         cnt = c if cnt is None else cnt + c
@@ -306,12 +329,17 @@ def _chunked_loss(hidden, head_w, labels, mask, chunk=512, cap=None):
 
 
 def build_model(cfg, params: dict | None = None, *,
+                policy: ShardingPolicy | None = None,
                 generator: torch.Generator | None = None,
                 device=None) -> Model:
     """The model on ``device`` (``cuda`` unless asked otherwise): with a
     copy of ``params`` (e.g. from :func:`params_from_jax`) or freshly
-    initialised from ``generator``."""
+    initialised from ``generator``.  With a ``policy`` on a mesh the
+    whole parameters (the same on every rank) are laid out by
+    :meth:`ShardingPolicy.shard_params`, each rank keeping its shards; the
+    policy's device must be ``device``."""
     device = resolve_device(device)
+    policy = policy or ShardingPolicy()
     if params is None:
         params = init_params(cfg, generator=generator, device=device)
     else:
@@ -319,6 +347,12 @@ def build_model(cfg, params: dict | None = None, *,
         params = tree_util.tree_map(
             lambda t: t.detach().to(device, copy=True), params
         )
+    if policy.mesh is not None:
+        if resolve_device(policy.device).type != device.type:
+            raise ValueError(f"the policy places on {policy.device or 'cuda'}"
+                             f", the model is on {device}")
+        params = policy.shard_params(params)
+        return Model(cfg, params, policy)
     return Model(cfg, params).to(device)
 
 

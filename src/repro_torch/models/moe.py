@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import _ACTS, dense, glu_mlp, init_dense, init_glu_mlp
+from .sharding import is_dtensor
 
 __all__ = ["init_moe", "moe_apply"]
 
@@ -109,7 +110,15 @@ def moe_apply(params, x: torch.Tensor, *, cfg, groups: int = 1):
     """MoE FFN: x (B, S, D) -> (y (B, S, D), aux_loss scalar).
 
     ``groups`` (dividing B * S): independent routing groups of consecutive
-    tokens (the engine passes B, one per slot row)."""
+    tokens (the engine passes B, one per slot row).  Not on a mesh: the
+    capacity buckets of DTensor tokens come out wrong, and the reference's
+    expert-parallel route (``_route_ep``) is not ported, so a DTensor input
+    raises ``NotImplementedError``."""
+    if is_dtensor(x):
+        raise NotImplementedError(
+            "MoE on a mesh (the capacity buckets over sharded tokens and "
+            "the reference's expert-parallel route) is not ported yet"
+        )
     m = cfg.moe
     B, S, D = x.shape
     logits = dense(x.to(torch.float32), params["w_router"].to(torch.float32))

@@ -9,26 +9,100 @@ the parameter tree; axes that do not divide a dimension are dropped.
 A spec is a tuple with one entry per dimension: ``None`` (replicated), an
 axis name, or a tuple of axis names.  A one-axis tuple is written as the
 name, the canonical form of the reference's ``PartitionSpec``, so a spec
-here equals ``tuple()`` of the reference's.  The mesh is read only through
+here equals ``tuple()`` of the reference's.  Specs read the mesh only through
 ``axis_names`` and ``devices.shape`` (:class:`repro_torch.launch.mesh.Mesh`).
 
-This module holds the spec logic only.  Nothing runs sharded yet: with a
-mesh, :meth:`ShardingPolicy.act`, :meth:`~ShardingPolicy.constrain` and
-:meth:`~ShardingPolicy.shard_params` raise ``NotImplementedError``; with
-``mesh=None`` they are the identity.
+On a mesh the layout runs on DTensor, which follows GSPMD's semantics one
+to one: a spec becomes a list of placements, one per mesh axis
+(:func:`placements`: the axis's tensor dimension as ``Shard(dim)``,
+``Replicate()`` for an axis the spec does not name; several axes on one
+dimension shard it major to minor, as ``PartitionSpec`` does);
+:meth:`~ShardingPolicy.shard_params` is ``distribute_tensor`` and
+:meth:`~ShardingPolicy.act` / :meth:`~ShardingPolicy.constrain` are
+``redistribute`` to the fitted spec (a plain tensor is taken as replicated
+first).  Axes that do not divide a dimension are dropped by ``_fit``, so
+DTensor never sees a ragged shard.  The placements live on the mesh's
+:meth:`~repro_torch.launch.mesh.Mesh.device_mesh` on the policy's
+``device`` (``cuda`` unless asked otherwise).  With ``mesh=None`` every
+method is the identity.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
-__all__ = ["ShardingPolicy", "REPLICATED"]
+__all__ = ["ShardingPolicy", "REPLICATED", "placements", "is_dtensor",
+           "spec_leaves", "replicated_scope"]
 
 REPLICATED: tuple = ()
 
-_NOT_YET = ("executing a sharding policy on a mesh (FSDP x TP layout, "
-            "expert parallelism) is a later slice of the port")
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+_SCOPE_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def replicated_scope():
+    """Plain tensors met beside DTensors count as replicated (DTensor's
+    ``implicit_replication``, made to nest)."""
+    # DTensor's implicit_replication is not reentrant (its exit turns the
+    # switch off): only the outermost scope enters and leaves it
+    if _SCOPE_DEPTH[0]:
+        _SCOPE_DEPTH[0] += 1
+        try:
+            yield
+        finally:
+            _SCOPE_DEPTH[0] -= 1
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    _SCOPE_DEPTH[0] = 1
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _SCOPE_DEPTH[0] = 0
+
+
+def spec_leaves(specs) -> list:
+    """The specs of a spec tree (``param_specs``) in the order
+    :func:`repro_torch.tree.flatten` lists the parameters (sorted keys); a
+    spec tuple is one leaf."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    return [tuple(specs)]
+
+
+def placements(mesh, spec: tuple) -> list:
+    """The DTensor placements of ``spec`` on ``mesh``: one per mesh axis.
+    An axis named on dimension ``d`` gives ``Shard(d)``; the axes of one
+    dimension must come in mesh order (DTensor shards major to minor in
+    mesh order, which is ``PartitionSpec``'s order then)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.axis_names)
+    out = [Replicate() for _ in names]
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} is not in the mesh's axis "
+                             f"order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"mesh axis {names[i]!r} shards two "
+                                 f"dimensions in {spec}")
+            out[i] = Shard(dim)
+    return out
 
 
 def _spec(*entries) -> tuple:
@@ -61,6 +135,8 @@ class ShardingPolicy:
     # weights/experts/KV sharded over (model x data) jointly, batch
     # replicated.
     mode: str = "train"
+    # where the placements live: cuda unless asked otherwise
+    device: str | None = None
 
     # ---- helpers ----------------------------------------------------------
 
@@ -73,10 +149,35 @@ class ShardingPolicy:
             for dim, ax in zip(shape, entries)
         ))
 
+    def scope(self):
+        """The scope of a pass under this policy: on a mesh, plain tensors
+        met beside DTensors (positions, masks, constants) count as
+        replicated; without one, nothing.  Scopes nest."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return replicated_scope()
+
+    @property
+    def device_mesh(self):
+        """The ``DeviceMesh`` the placements live on."""
+        return self.mesh.device_mesh(self.device)
+
     def constrain(self, x, spec: tuple):
+        """``x`` laid out by ``spec`` (fitted to its shape): a DTensor
+        redistributed, a plain tensor (the whole value on every rank) taken
+        as replicated first.  The identity without a mesh."""
         if self.mesh is None:
             return x
-        raise NotImplementedError(_NOT_YET)
+        from torch.distributed.tensor import Replicate, distribute_tensor
+
+        dm = self.device_mesh
+        want = placements(self.mesh, self._fit(tuple(x.shape), spec))
+        if not is_dtensor(x):
+            x = distribute_tensor(x, dm, [Replicate()] * dm.ndim,
+                                  src_data_rank=None)
+        if tuple(x.placements) == tuple(want):
+            return x
+        return x.redistribute(dm, want)
 
     @property
     def dp(self):
@@ -196,15 +297,65 @@ class ShardingPolicy:
         return walk(params, "")
 
     def shard_params(self, params):
+        """Every leaf of a whole parameter tree (the same numbers on every
+        rank) as a DTensor laid out by :meth:`param_specs`; each rank keeps
+        its own shard and nothing moves between ranks."""
         if self.mesh is None:
             return params
-        raise NotImplementedError(_NOT_YET)
+        from torch.distributed.tensor import distribute_tensor
+
+        dm = self.device_mesh
+
+        def walk(node, spec):
+            if isinstance(node, dict):
+                return {k: walk(v, spec[k]) for k, v in node.items()}
+            return distribute_tensor(node.detach(), dm,
+                                     placements(self.mesh, spec),
+                                     src_data_rank=None)
+
+        return walk(params, self.param_specs(params))
 
     # ---- activation constraints -------------------------------------------
 
     def act(self, x, *, kind: str):
-        """Constrain an activation tensor (hidden, logits, heads, kv,
-        cache, tokens)."""
+        """Constrain an activation tensor. kinds:
+        hidden   (B, S, D)   — batch on dp (+ seq on tp if seq_parallel)
+        logits   (B, S, V)   — vocab on tp
+        heads    (B, S, H, hd) — heads on tp
+        kv       (B, S, K, hd) — kv heads on tp if divisible, else
+                                 replicated over tp
+        cache    (B, K, S, hd) — kv heads on tp if divisible, else seq
+        tokens   (B, S)
+        """
         if self.mesh is None:
             return x
-        raise NotImplementedError(_NOT_YET)
+        dp, tp = self.dp, self.tp_axis
+        if self.mode == "serve2d":
+            joint = ((tp,) if tp else ()) + tuple(self.fsdp_axes or ())
+            if kind == "cache":  # (B, K, S, hd): sequence over the grid
+                if x.shape[2] % _axis_size(self.mesh, joint) == 0:
+                    return self.constrain(x, (None, None, joint, None))
+                return self.constrain(x, (None, None, tp, None))
+            if kind == "logits":
+                return self.constrain(x, (None, None, tp))
+            return x  # activations replicated (tiny at decode)
+        if kind == "hidden":
+            seq = tp if self.seq_parallel else None
+            return self.constrain(x, (dp, seq, None))
+        if kind == "tokens":
+            return self.constrain(x, (dp, None))
+        if kind == "logits":
+            return self.constrain(x, (dp, None, tp))
+        if kind == "heads":
+            return self.constrain(x, (dp, None, tp, None))
+        if kind == "kv":
+            if tp and x.shape[2] % self.tp_size == 0:
+                return self.constrain(x, (dp, None, tp, None))
+            # kv heads that do not divide over tp are replicated over it
+            return self.constrain(x, (dp, None, None, None))
+        if kind == "cache":
+            if tp and x.shape[1] % self.tp_size == 0:
+                return self.constrain(x, (dp, tp, None, None))
+            return self.constrain(x, (dp, None, tp, None))
+        raise ValueError(kind)
+

@@ -37,6 +37,7 @@ from . import rwkv as rwkv_mod
 from .layers import (
     glu_mlp, init_glu_mlp, mixed_bwd, mixed_bwd_enabled, rms_norm,
 )
+from .sharding import ShardingPolicy
 from .. import tree as tree_util
 
 __all__ = ["init_stack", "stack_apply", "init_stack_cache", "stack_decode"]
@@ -96,20 +97,21 @@ def _post(p, h, name, cfg):
     return h
 
 
-def _cross(p, x, cfg, positions, enc_out):
+def _cross(p, x, cfg, positions, enc_out, policy):
     """The cross-attention block: ``x`` plus attention over ``enc_out``."""
     h = rms_norm(x, p["norm_cross"], cfg.norm_eps)
     return x + attn_mod.attention_full(p["cross"], h, cfg=cfg,
                                        positions=positions, causal=False,
-                                       kv_src=enc_out)
+                                       kv_src=enc_out, policy=policy)
 
 
-def _sublayer_full(p, x, sub, *, cfg, positions, causal, enc_out):
+def _sublayer_full(p, x, sub, *, cfg, positions, causal, enc_out, policy):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if sub.mixer in ("attn", "attn_local"):
         h = attn_mod.attention_full(p["mixer"], h, cfg=cfg,
                                     positions=positions,
-                                    window=_window(cfg, sub), causal=causal)
+                                    window=_window(cfg, sub), causal=causal,
+                                    policy=policy)
     elif sub.mixer == "mamba":
         h = mamba_mod.mamba_full(p["mixer"], h, cfg=cfg)
     elif sub.mixer == "rwkv6":
@@ -118,7 +120,7 @@ def _sublayer_full(p, x, sub, *, cfg, positions, causal, enc_out):
         h = torch.zeros_like(h)
     x = x + _post(p, h, "norm1_post", cfg)
     if "cross" in p:
-        x = _cross(p, x, cfg, positions, enc_out)
+        x = _cross(p, x, cfg, positions, enc_out, policy)
 
     aux = None
     if "ffn" in p:
@@ -149,13 +151,16 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 
 
 def _super_layer(layer_params, x, aux, *, cfg, positions, pattern, causal,
-                 enc_out):
-    for i, sub in enumerate(pattern):
-        x, a = _sublayer_full(layer_params[f"sub{i}"], x, sub, cfg=cfg,
-                              positions=positions, causal=causal,
-                              enc_out=enc_out)
-        if a is not None:
-            aux = aux + a
+                 enc_out, policy):
+    # the scope again: remat recomputes this body in the backward pass
+    with policy.scope():
+        x = policy.act(x, kind="hidden")
+        for i, sub in enumerate(pattern):
+            x, a = _sublayer_full(layer_params[f"sub{i}"], x, sub, cfg=cfg,
+                                  positions=positions, causal=causal,
+                                  enc_out=enc_out, policy=policy)
+            if a is not None:
+                aux = aux + a
     return x, aux
 
 
@@ -194,20 +199,23 @@ def _remat_wrap(body, remat: str):
 
 def stack_apply(stack_params, x: torch.Tensor, *, cfg, positions,
                 pattern=None, causal: bool = True,
-                enc_out: torch.Tensor | None = None):
+                enc_out: torch.Tensor | None = None,
+                policy: ShardingPolicy = ShardingPolicy()):
     """Run the stack (of ``pattern``, the decoder's by default), one
     super-layer at a time under ``cfg.remat``; ``causal`` false for the
     encoder, ``enc_out`` the encoder's output for the cross-attention
     blocks.  Returns ``(hidden, aux)``: the MoE load-balance losses summed
     over sublayers and layers (float32 zero without MoE), as the
-    reference's scan carries them."""
+    reference's scan carries them.  ``policy`` lays out the hidden state
+    as ``hidden`` at the top of every super-layer, and the attention
+    blocks' heads."""
     pattern = pattern if pattern is not None else cfg.pattern
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer_params in _layer_views(stack_params):
         body = _remat_wrap(
             functools.partial(_super_layer, layer_params, cfg=cfg,
                               positions=positions, pattern=pattern,
-                              causal=causal, enc_out=enc_out),
+                              causal=causal, enc_out=enc_out, policy=policy),
             cfg.remat,
         )
         x, aux = body(x, aux)

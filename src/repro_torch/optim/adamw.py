@@ -5,15 +5,21 @@ in place (the reference returns new arrays; the port keeps one copy of
 each to save device memory).  Every scalar the update divides by is a
 0-dim tensor on the parameters' device, so the division is IEEE on the
 card as on the CPU.
+
+Leaves may be DTensors (a model on a mesh): the moments take each
+parameter's placements, the update runs on each rank's shards, and
+:func:`global_norm` is the norm of the full tensors.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 
 from .. import tree as tree_util
+from ..models.sharding import is_dtensor, replicated_scope
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "global_norm"]
 
@@ -30,19 +36,33 @@ def adamw_init(params, *, moment_dtype: str = "float32") -> AdamWState:
     """Zero moments, one per parameter leaf (tree order)."""
     md = _DTYPES[moment_dtype]
     leaves = tree_util.leaves(params)
+    zeros = lambda p: torch.zeros_like(  # noqa: E731
+        p.detach(), dtype=md, memory_format=torch.contiguous_format)
     return AdamWState(
         step=0,
-        mu=[torch.zeros(p.shape, dtype=md, device=p.device) for p in leaves],
-        nu=[torch.zeros(p.shape, dtype=md, device=p.device) for p in leaves],
+        mu=[zeros(p) for p in leaves],
+        nu=[zeros(p) for p in leaves],
     )
+
+
+def _full(s: torch.Tensor) -> torch.Tensor:
+    """A DTensor scalar as the plain tensor of its full value."""
+    return s.full_tensor() if is_dtensor(s) else s
 
 
 def global_norm(grads) -> torch.Tensor:
     sq = [
-        torch.sum(torch.square(g.to(torch.float32)))
+        _full(torch.sum(torch.square(g.to(torch.float32))))
         for g in tree_util.leaves(grads)
     ]
     return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def _mesh_scope(leaves):
+    """Plain scalars count as replicated beside DTensor leaves."""
+    if leaves and is_dtensor(leaves[0]):
+        return replicated_scope()
+    return contextlib.nullcontext()
 
 
 @torch.no_grad()
@@ -77,6 +97,15 @@ def adamw_update(
     # one leaf at a time, in place where the arithmetic allows: the
     # temporaries are a few copies of one leaf, never of the whole tree
     # (gemma2-27b's 256,000 x 4,608 embedding is 4.7 GB in float32)
+    with _mesh_scope(flat_p):
+        _update_leaves(flat_g, state, flat_p, scale=scale, b1=b1, b2=b2,
+                       c1=c1, c2=c2, lr_t=lr_t, eps=eps,
+                       weight_decay=weight_decay)
+    return AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm}
+
+
+def _update_leaves(flat_g, state, flat_p, *, scale, b1, b2, c1, c2, lr_t,
+                   eps, weight_decay):
     for g, m, v, p in zip(flat_g, state.mu, state.nu, flat_p):
         if scale is not None:
             g = g * scale.to(g.dtype)
@@ -96,4 +125,3 @@ def adamw_update(
         if m32 is not m:
             m.copy_(m32)
             v.copy_(v32)
-    return AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm}

@@ -16,7 +16,7 @@ import torch
 
 from .. import tree as tree_util
 
-__all__ = ["ef_init"]
+__all__ = ["ef_init", "ef_residual"]
 
 
 def ef_init(params: Any, *, group: int | None = None) -> Any:
@@ -34,3 +34,13 @@ def ef_init(params: Any, *, group: int | None = None) -> Any:
         return torch.zeros(shape, dtype=torch.float32, device=p.device)
 
     return tree_util.tree_map(zeros, params)
+
+
+def ef_residual(c: torch.Tensor, scale, qmax: float) -> torch.Tensor:
+    """``c - Q(c)``: what a round-to-nearest clip quantizer at ``scale``
+    drops from ``c`` (the analytic single-scale residual, in float32,
+    with no integer casts)."""
+    c = c.to(torch.float32)
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=c.device)
+    q = torch.clamp(torch.round(c / scale), -float(qmax), float(qmax))
+    return c - q * scale

@@ -44,9 +44,26 @@ of ``mode`` and writes its results to ``<out_dir>/rank<rank>.npz``:
   uncompressed, int4 + EF and raw int4 ``nap`` sync at lr 1e-2, and 4
   steps each of ``psum`` and ``nap`` at lr 1e-3; the losses of every run.
 
-``jax_train`` / ``jax_rs_ag`` / ``jax_serve`` (one process, 4 virtual CPU
-devices) run the JAX package's side of ``train`` / ``rs_ag`` / ``serve``
-(2x2) and write ``<out_dir>/jax.npz``.  The tests start a world with :func:`spawn_world`.
+* ``sharded`` — the FSDP x TP layout on DTensor over a 2x2 ``("data",
+  "model")`` mesh, reduced minicpm-2b from ``<out_dir>/params0.npz``: the
+  forward loss and the gradients in the parameters' layout, each
+  parameter's local shard shape, and 2 ``make_train_step`` steps at
+  n_micro 2 (``grad_shardings``); ``build_training`` on the mesh against
+  ``mesh=None`` (2 steps), a resume on the mesh against a straight run,
+  and checkpoints restored across layouts both ways; ``make_grad_sync``
+  on a 2x2 ``("pod", "data")`` mesh (``nap`` mean: plain, int8, int4);
+  ``Topology.from_mesh`` with a ``model`` axis (one DP grid per
+  model index, ``psum`` and the point-to-point ``rd``); and the other
+  families' mixers on the 2x2 mesh against ``mesh=None``
+  (:func:`mesh_families`).
+
+``jax_train`` / ``jax_rs_ag`` / ``jax_serve`` / ``jax_sharded`` (one
+process, 4 virtual CPU devices) run the JAX package's side of ``train`` /
+``rs_ag`` / ``serve`` (2x2) / ``sharded`` and write
+``<out_dir>/jax.npz``.  ``jax_specs`` (512 virtual CPU devices) writes
+the reference's ``input_specs`` / ``state_specs`` of every dry-run cell on
+both production meshes to ``<out_dir>/jax_specs.json``: each leaf's
+shape, dtype and spec.  The tests start a world with :func:`spawn_world`.
 """
 
 from __future__ import annotations
@@ -867,6 +884,413 @@ def run_jax_train(out_dir):
     np.savez(Path(out_dir) / "jax.npz", **out)
 
 
+SHARD_MESH = ((2, 2), ("data", "model"))
+SYNC_MESH = ((2, 2), ("pod", "data"))
+SHARD_SEQ, SHARD_BATCH, SHARD_MICRO, SHARD_SEED = 32, 8, 2, 3
+SHARD_STEPS = 2
+#: make_grad_sync's policies: (name, CommPolicy keywords)
+SYNC_POLICIES = (
+    ("plain", dict(algorithm="nap", mean=True)),
+    ("int8", dict(algorithm="nap", mean=True, compress_bits=8)),
+    ("int4", dict(algorithm="nap", mean=True, compress_bits=4)),
+)
+
+
+def sync_grads_numpy(world):
+    """Per-rank gradients for the sync: leaf (world, ...) float32, row
+    ``r`` rank ``r``'s (the reference check's "w" / "b", plus a longer
+    leaf)."""
+    rng = np.random.default_rng(3)
+    return {
+        "b": rng.normal(size=(world, 2)).astype(np.float32),
+        "e": rng.normal(size=(world, 300)).astype(np.float32),
+        "w": rng.normal(size=(world, 4, 2)).astype(np.float32),
+    }
+
+
+def shard_opt():
+    from repro_torch.configs import OptimizerConfig
+
+    return OptimizerConfig(lr=1e-3, schedule="constant", warmup_steps=1)
+
+
+def _full(t):
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().to(torch.float32).numpy().copy()
+
+
+def _train_cfg(steps, every=0):
+    from repro_torch.configs import TrainConfig
+
+    return TrainConfig(steps=steps, seq_len=SHARD_SEQ,
+                       global_batch=SHARD_BATCH,
+                       microbatch=SHARD_BATCH // SHARD_MICRO,
+                       seed=SHARD_SEED, checkpoint_every=every,
+                       optimizer=shard_opt())
+
+
+def run_sharded(rank, world, out_dir):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.configs import MINICPM_2B, reduced
+    from repro_torch.core import CommPolicy, comm, grad_sync
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import build_training, make_mesh, make_policy
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import build_model, init_params, params_from_jax
+    from repro_torch.models.sharding import spec_leaves
+    from repro_torch.optim import adamw_init
+
+    out_dir = Path(out_dir)
+    cfg = reduced(MINICPM_2B)
+    with np.load(out_dir / "params0.npz") as z:
+        flat0 = [z[f"leaf{i}"] for i in range(len(z.files))]
+    _, td = tree.flatten(init_params(cfg, device="meta"))
+    params = params_from_jax(tree.unflatten(td, flat0), cfg, "cpu")
+    mesh = make_mesh(*SHARD_MESH)
+    policy = make_policy(cfg, mesh, device="cpu")
+    data = SyntheticLM(cfg.vocab_size, SHARD_SEQ, SHARD_BATCH,
+                       seed=SHARD_SEED, mesh=mesh, batch_axes=("data",))
+    out = {}
+
+    # forward loss and gradients, in the parameters' layout
+    model = build_model(cfg, params, policy=policy, device="cpu")
+    specs = spec_leaves(policy.param_specs(model.params()))
+    with policy.scope():
+        loss, _ = model(data.batch(0, "cpu"))
+        grads = torch.autograd.grad(loss, model.leaves())
+    out["loss0"] = np.asarray(float(loss.full_tensor()))
+    for i, (g, p, sp) in enumerate(zip(grads, model.leaves(), specs)):
+        g = policy.constrain(g, sp)
+        assert tuple(g.placements) == tuple(p.placements), i
+        out[f"grad{i}"] = _full(g)
+        out[f"shape{i}"] = np.asarray(p.to_local().shape)
+
+    # make_train_step over the mesh
+    model = build_model(cfg, params, policy=policy, device="cpu")
+    state = {"model": model, "opt": adamw_init(model.params())}
+    step = make_train_step(model, shard_opt(), n_micro=SHARD_MICRO,
+                           grad_shardings=policy.param_specs(model.params()),
+                           device="cpu")
+    losses = []
+    for s in range(SHARD_STEPS):
+        state, m = step(state, data.batch(s, "cpu"))
+        losses.append(float(m["loss"]))
+    out["losses"] = np.asarray(losses)
+    for i, p in enumerate(model.leaves()):
+        out[f"param{i}"] = _full(p)
+    for i, (mu, p) in enumerate(zip(state["opt"].mu, model.leaves())):
+        assert tuple(mu.placements) == tuple(p.placements), i
+
+    # build_training on the mesh against mesh=None; resume; restores
+    def loop(steps, ckpt, m=mesh, every=0):
+        return build_training(cfg, _train_cfg(steps, every), mesh=m,
+                              ckpt_dir=ckpt, device="cpu")
+
+    def run(lp, until):
+        lp.run(until)
+        return np.asarray([x["loss"] for x in lp.metrics_log])
+
+    def params_of(lp):
+        return [_full(p) for p in lp.state["model"].leaves()]
+
+    straight = loop(4, out_dir / f"straight{rank}")
+    out["mesh_losses"] = run(straight, 4)
+    out["mesh_params"] = np.concatenate(
+        [p.reshape(-1) for p in params_of(straight)])
+    plain = loop(4, out_dir / f"plain{rank}", m=None, every=2)
+    out["plain_losses"] = run(plain, 4)
+    # resume on the mesh: 2 steps with a checkpoint after step 1 (rank 0
+    # writes it), then a fresh loop up to step 4
+    first = loop(4, out_dir / "resume", every=2)
+    run(first, 2)
+    out["ckpt_params"] = np.concatenate(
+        [p.reshape(-1) for p in params_of(first)])
+    resumed = loop(4, out_dir / "resume")
+    assert resumed.start_step == 2
+    out["resumed_losses"] = run(resumed, 4)
+    out["resumed_params"] = np.concatenate(
+        [p.reshape(-1) for p in params_of(resumed)])
+    # the mesh's checkpoint into mesh=None (every rank reads rank 0's
+    # files), and rank 0's mesh=None checkpoint (after step 3) into the mesh
+    dist.barrier()
+    across = loop(4, out_dir / "resume", m=None)
+    assert across.start_step == 2
+    out["into_plain_params"] = np.concatenate(
+        [p.reshape(-1) for p in params_of(across)])
+    out["into_plain_losses"] = run(across, 4)
+    back = loop(4, out_dir / "plain0")
+    assert back.start_step == 4
+    out["into_mesh_params"] = np.concatenate(
+        [p.reshape(-1) for p in params_of(back)])
+    out["plain_params"] = np.concatenate(
+        [p.reshape(-1) for p in params_of(plain)])
+
+    # make_grad_sync on ("pod", "data")
+    smesh = make_mesh(*SYNC_MESH)
+    gnp = sync_grads_numpy(world)
+    gspecs = {k: (("pod", "data"),) for k in gnp}
+    dm = smesh.device_mesh("cpu")
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.sharding import placements
+
+    for name, kw in SYNC_POLICIES:
+        sync = grad_sync.make_grad_sync(
+            CommPolicy(**kw), smesh, data_axes=("pod", "data"),
+            grad_specs=gspecs, device="cpu")
+        g = {k: DTensor.from_local(torch.from_numpy(v[rank:rank + 1].copy()),
+                                   dm, placements(smesh, gspecs[k]),
+                                   run_check=False)
+             for k, v in gnp.items()}
+        res = sync(g)
+        assert sync.context.topology.axes == ("pod", "data")
+        for k, t in res.items():
+            assert tuple(t.placements) == tuple(g[k].placements)
+            out[f"sync/{name}/{k}"] = t.to_local().numpy()[0].copy()
+        out[f"sync/{name}/buckets"] = np.asarray(len(sync.plan.buckets))
+
+    # the other families' mixers on the 2x2 mesh against mesh=None
+    out.update(mesh_families(mesh))
+
+    # two mesh axes on one dim: PartitionSpec(("pod", "data"))'s order
+    from torch.distributed.tensor import distribute_tensor
+
+    rows = torch.arange(16, dtype=torch.float32).reshape(8, 2)
+    out["fsdp2"] = distribute_tensor(
+        rows, dm, placements(smesh, (("pod", "data"), None)),
+        src_data_rank=None).to_local().numpy()
+
+    # Topology.from_mesh with a model axis: one DP grid per model index
+    x = torch.full((5,), float(rank + 1))
+    for names in (("data", "model"), ("pod", "model")):
+        tmesh = make_mesh((2, 2), names)
+        topo = comm.Topology.from_mesh(tmesh)
+        ctx = comm.CommContext(topo)
+        for algo in ("psum", "rd"):
+            out[f"topo/{names[0]}/{algo}"] = ctx.allreduce(
+                x, algorithm=algo).numpy()
+    return out
+
+
+def _rwkv_group_norm_exact(x, scale, H, hd, eps=1e-5):
+    """RWKV's per-head norm without its bf16 round trip (a rounding
+    boundary moves with the summation order)."""
+    import torch
+
+    shape = x.shape
+    x = x.reshape(*shape[:-1], H, hd).to(torch.float32)
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, unbiased=False)
+    return ((x - mu) * torch.rsqrt(var + eps)).reshape(shape) * scale
+
+
+def mesh_family_configs():
+    """Reduced configs whose mixers the mesh runs: GQA with a window and
+    softcaps (gemma2), MQA (granite), QKV bias (qwen2), RWKV6, and jamba's
+    Mamba + attention super-layer with dense FFNs (MoE refuses a mesh)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+
+    cfgs = {a: reduced(ARCHS[a]) for a in ("gemma2-27b", "granite-20b",
+                                          "qwen2-72b", "rwkv6-1.6b")}
+    jamba = reduced(ARCHS["jamba-1.5-large-398b"])
+    cfgs["jamba-dense-ffn"] = dataclasses.replace(
+        jamba, moe=None, pattern=tuple(
+            dataclasses.replace(s, ffn="dense") if s.ffn == "moe" else s
+            for s in jamba.pattern))
+    return cfgs
+
+
+def mesh_families(mesh):
+    """Loss and full gradients of each :func:`mesh_family_configs` entry on
+    ``mesh`` and with ``mesh=None`` (same seeded parameters and batch), and
+    whether an MoE model refuses the mesh."""
+    import torch
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import make_policy
+    from repro_torch.models import build_model
+    from repro_torch.models import rwkv as trwkv
+
+    out = {}
+    norm = trwkv._group_norm
+    trwkv._group_norm = _rwkv_group_norm_exact
+    try:
+        for name, cfg in mesh_family_configs().items():
+            for tag, m in (("plain", None), ("mesh", mesh)):
+                policy = make_policy(cfg, m, device="cpu")
+                model = build_model(cfg, generator=torch.Generator()
+                                    .manual_seed(0), device="cpu",
+                                    policy=policy)
+                data = SyntheticLM(cfg.vocab_size, SHARD_SEQ, SHARD_BATCH,
+                                   seed=SHARD_SEED, mesh=m,
+                                   batch_axes=("data",) if m else ())
+                with policy.scope():
+                    loss, _ = model(data.batch(0, "cpu"))
+                    grads = torch.autograd.grad(loss, model.leaves())
+                out[f"family/{name}/{tag}/loss"] = _full(loss)
+                for i, g in enumerate(grads):
+                    out[f"family/{name}/{tag}/grad{i}"] = _full(g)
+    finally:
+        trwkv._group_norm = norm
+    cfg = reduced(ARCHS["deepseek-moe-16b"])
+    policy = make_policy(cfg, mesh, device="cpu")
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu", policy=policy)
+    data = SyntheticLM(cfg.vocab_size, SHARD_SEQ, SHARD_BATCH,
+                       seed=SHARD_SEED, mesh=mesh, batch_axes=("data",))
+    try:
+        model(data.batch(0, "cpu"))
+        refused = False
+    except NotImplementedError:
+        refused = True
+    out["family/moe_refused"] = np.asarray(refused)
+    return out
+
+
+def run_jax_sharded(out_dir):
+    os.environ["XLA_FLAGS"] = (
+        "--xla_force_host_platform_device_count=4 "
+        + os.environ.get("XLA_FLAGS", "")
+    )
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    import repro.kernels.transport as jt
+    from repro import compat
+    from repro.configs.archs import MINICPM_2B, reduced
+    from repro.configs.base import OptimizerConfig
+    from repro.core import comm, grad_sync
+    from repro.data import SyntheticLM
+    from repro.launch.mesh import make_mesh
+    from repro.launch.steps import make_policy, make_train_step
+    from repro.models import build_model
+    from repro.optim import adamw_init
+
+    cfg = reduced(MINICPM_2B)
+    mesh = make_mesh(*SHARD_MESH)
+    policy = make_policy(cfg, mesh)
+    model = build_model(cfg, policy)
+    params0 = jax.jit(model.init)(jax.random.PRNGKey(0))
+    out = {}
+    for i, p in enumerate(jax.tree.leaves(params0)):
+        out[f"init{i}"] = np.array(p, copy=True)
+    params = policy.shard_params(params0)
+    data = SyntheticLM(cfg.vocab_size, SHARD_SEQ, SHARD_BATCH,
+                       seed=SHARD_SEED, mesh=mesh, batch_axes=("data",))
+    (loss, _), grads = jax.jit(jax.value_and_grad(model.loss, has_aux=True))(
+        params, data.batch(0))
+    out["loss0"] = np.asarray(loss)
+    devs = list(mesh.devices.flat)
+    for i, (p, g) in enumerate(zip(jax.tree.leaves(params),
+                                   jax.tree.leaves(grads))):
+        out[f"grad{i}"] = np.asarray(g)
+        by_dev = {s.device: s.data.shape for s in p.addressable_shards}
+        out[f"shapes{i}"] = np.asarray([by_dev[d] for d in devs])
+    opt = OptimizerConfig(lr=1e-3, schedule="constant", warmup_steps=1)
+    shardings = jax.tree.map(lambda s: NamedSharding(mesh, s),
+                             policy.param_specs(params0),
+                             is_leaf=lambda s: isinstance(s, P))
+    step = jax.jit(make_train_step(model, opt, n_micro=SHARD_MICRO,
+                                   grad_shardings=shardings))
+    state = {"params": params, "opt": adamw_init(params)}
+    losses = []
+    for s in range(SHARD_STEPS):
+        state, m = step(state, data.batch(s))
+        losses.append(float(m["loss"]))
+    out["losses"] = np.asarray(losses)
+    for i, p in enumerate(jax.tree.leaves(state["params"])):
+        out[f"param{i}"] = np.asarray(p)
+
+    # sync_grads_local in the test's own shard_map, transport in the jnp
+    # reference (the reference's make_grad_sync cannot run a compressed
+    # sync on this jax: quantize_pack's pallas_call inside its shard_map)
+    smesh = make_mesh(*SYNC_MESH)
+    quantize, unpack = jt.quantize_pack, jt.unpack_dequantize
+    jt.quantize_pack = functools.partial(quantize, impl="xla")
+    jt.unpack_dequantize = functools.partial(unpack, impl="xla")
+    gnp = sync_grads_numpy(4)
+    try:
+        for name, kw in SYNC_POLICIES:
+            cfg_s = comm.CommPolicy(**kw)
+
+            def local(g, cfg_s=cfg_s):
+                return grad_sync.sync_grads_local(
+                    g, cfg=cfg_s, inter_axes=("pod",), intra_axes=("data",))
+
+            spec = {k: P(("pod", "data")) for k in gnp}
+            fn = jax.jit(compat.shard_map(local, mesh=smesh, in_specs=(spec,),
+                                          out_specs=spec, check_vma=False))
+            res = fn({k: jnp.asarray(v) for k, v in gnp.items()})
+            for k, v in res.items():
+                out[f"sync/{name}/{k}"] = np.asarray(v)
+    finally:
+        jt.quantize_pack, jt.unpack_dequantize = quantize, unpack
+    np.savez(Path(out_dir) / "jax.npz", **out)
+
+
+def spec_entry(entry):
+    """A spec entry as JSON: None, an axis name, or a list of names (a
+    one-axis tuple written as the name)."""
+    if isinstance(entry, tuple):
+        return entry[0] if len(entry) == 1 else list(entry)
+    return entry
+
+
+def run_jax_specs(out_dir):
+    os.environ["XLA_FLAGS"] = (
+        "--xla_force_host_platform_device_count=512 "
+        + os.environ.get("XLA_FLAGS", "")
+    )
+    import json
+
+    import jax
+
+    from repro.launch import steps
+    from repro.launch.dryrun import cells
+    from repro.launch.mesh import make_production_mesh
+
+    def leaf(x):
+        return {"shape": list(x.shape), "dtype": str(x.dtype),
+                "spec": [spec_entry(e) for e in x.sharding.spec]}
+
+    def paths(tree):
+        flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+        return {"/".join(str(getattr(k, "key", getattr(k, "name", k)))
+                         for k in path): leaf(x) for path, x in flat}
+
+    out = {}
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        for arch, shape in cells():
+            batch = steps.input_specs(arch, shape, mesh)
+            _, _, state, _ = steps.state_specs(arch, shape, mesh)
+            cell = {"batch": {k: leaf(v) for k, v in batch.items()},
+                    "params": [leaf(x) for x in
+                               jax.tree.leaves(state["params"])]}
+            if "opt" in state:
+                cell["mu"] = [leaf(x) for x in jax.tree.leaves(
+                    state["opt"].mu)]
+                cell["nu"] = [leaf(x) for x in jax.tree.leaves(
+                    state["opt"].nu)]
+            if "cache" in state:
+                cell["cache"] = paths(state["cache"])
+            out[f"{arch}/{shape}/{int(multi_pod)}"] = cell
+    (Path(out_dir) / "jax_specs.json").write_text(json.dumps(out))
+
+
 def spawn_world(mode: str, out_dir: Path, timeout: float = 300.0,
                 world: int = WORLD):
     """Run ``mode`` on a gloo world of ``world`` ranks; returns each
@@ -904,9 +1328,10 @@ def spawn_world(mode: str, out_dir: Path, timeout: float = 300.0,
 
 def main():
     mode = sys.argv[1]
-    if mode in ("jax_train", "jax_rs_ag", "jax_serve"):
+    if mode.startswith("jax_"):
         {"jax_train": run_jax_train, "jax_rs_ag": run_jax_rs_ag,
-         "jax_serve": run_jax_serve}[mode](sys.argv[2])
+         "jax_serve": run_jax_serve, "jax_sharded": run_jax_sharded,
+         "jax_specs": run_jax_specs}[mode](sys.argv[2])
         return
     rank, world, store, out_dir = (
         int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
@@ -933,6 +1358,8 @@ def main():
             out = run_serve_whisper(rank, world, out_dir)
         elif mode == "dp_checks":
             out = run_dp_checks(rank, world, out_dir)
+        elif mode == "sharded":
+            out = run_sharded(rank, world, out_dir)
         else:
             raise SystemExit(f"unknown mode {mode!r}")
         dist.barrier()

@@ -13,7 +13,9 @@ dtypes, no memory.
   port's cache keeps one index a row: its ``index`` is (B,) where the
   reference's is a scalar, and its ring ``pos`` (n_super, B, size) where
   the reference's is (n_super, size);
-* with a mesh, both raise ``NotImplementedError`` naming the mesh slice.
+* with a mesh, both give the same leaves, each carrying its spec
+  (``tests/test_torch_mesh_specs.py`` holds the specs against the
+  reference's on the production meshes).
 """
 
 from __future__ import annotations
@@ -150,7 +152,13 @@ def test_overrides_apply():
 
 def test_a_mesh_is_the_mesh_slice():
     mesh = make_mesh((2, 4), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        input_specs("minicpm-2b", "train_4k", mesh)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        state_specs("minicpm-2b", "train_4k", mesh)
+    batch = input_specs("minicpm-2b", "train_4k", mesh)
+    plain = input_specs("minicpm-2b", "train_4k", None)
+    for k, t in batch.items():
+        assert t.is_meta and tuple(t.shape) == tuple(plain[k].shape)
+        assert t.spec == ("data", None)
+    _, policy, state, _ = state_specs("minicpm-2b", "train_4k", mesh)
+    assert policy.mesh is mesh
+    w_q = state["params"]["stack"]["sub0"]["mixer"]["w_q"]
+    assert w_q.is_meta and w_q.spec == (None, "data", "model")
+    assert not hasattr(plain["tokens"], "spec")

@@ -200,3 +200,33 @@ def test_tp_engine_serves_whisper_with_the_single_device_tokens(tp_world,
         for i, want in enumerate(serial):
             assert row[f"serial{i}"].tolist() == want, (rank, i)
             assert row[f"cont{i}"].tolist() == want, (rank, i)
+
+
+def test_engine_build_runs_the_encoder_once_at_b1(pair, monkeypatch):
+    """Building an engine runs the encoder once, on one row of zero frames
+    broadcast over the free slot rows, as the reference's
+    ``_init_slot_cache`` (``repro/serve/engine.py:152-163``) does; before
+    the fix it ran ``b_max`` rows."""
+    from repro_torch.models import model as model_mod
+
+    passes, batches = [], []
+    encode = model_mod._encode
+    init_decode = pair.model.init_decode
+
+    def counting_encode(params, frames, cfg, *a, **kw):
+        passes.append(tuple(frames.shape))
+        return encode(params, frames, cfg, *a, **kw)
+
+    def recording_init_decode(batch_size, max_len, batch=None):
+        batches.append(batch_size)
+        return init_decode(batch_size, max_len, batch=batch)
+
+    monkeypatch.setattr(model_mod, "_encode", counting_encode)
+    monkeypatch.setattr(pair.model, "init_decode", recording_init_decode)
+    engine = _engine(pair)
+    assert engine.b_max > 1
+    assert batches == [1]
+    assert passes == [(1, tw.WHISPER_FRAMES, pair.cfg.d_model)]
+    enc = engine._cache["enc_out"]
+    assert enc.shape[0] == engine.b_max
+    assert torch.equal(enc, enc[:1].expand_as(enc))
