@@ -1820,7 +1820,7 @@ class _RouterLog:
 
         self.moe, self.orig = moe, moe.moe_apply
 
-        def wrapped(params, x, *, cfg, groups=1):
+        def wrapped(params, x, *, cfg, **kw):
             k = cfg.moe.top_k
             probs = torch.softmax(x.to(torch.float32) @ params[
                 "w_router"].to(torch.float32), dim=-1)
@@ -1829,7 +1829,7 @@ class _RouterLog:
                       if top.values.shape[-1] > k  # else no expert is left
                       else torch.full_like(top.values[..., 0], math.inf))
             self.calls.append((top.indices[..., :k].sort(-1).values, margin))
-            return self.orig(params, x, cfg=cfg, groups=groups)
+            return self.orig(params, x, cfg=cfg, **kw)
 
         moe.moe_apply = wrapped
         return self
@@ -2213,10 +2213,15 @@ def _resume_check(cfg, root: Path, device="cuda") -> dict:
 
 
 def _trainer_profile(loop, table="profile_trainer_step.txt") -> dict:
-    """One more step of the loop under ``torch.profiler``: device busy
-    time by kernel class (GEMM / other), the idle share of the step's wall
-    time and the number of kernel launches.  The table goes to
-    ``chiprun_out/<table>``."""
+    """One more step of the loop under ``torch.profiler``
+    (:func:`_profile`)."""
+    return _profile(lambda: loop.run(loop.start_step + 1), table)
+
+
+def _profile(fn, table) -> dict:
+    """``fn()`` under ``torch.profiler``: device busy time by kernel class
+    (GEMM / other), the idle share of its wall time and the number of
+    kernel launches.  The table goes to ``chiprun_out/<table>``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2224,7 +2229,7 @@ def _trainer_profile(loop, table="profile_trainer_step.txt") -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loop.run(loop.start_step + 1)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -2740,6 +2745,264 @@ def phase_mesh(smi, cfg=MINICPM_2B_4L, device="cuda", sizes=MESH) -> dict:
             for k in ("quantize_pack", "unpack_dequantize")}
 
 
+# ---------------------------------------------------------------------------
+# serving and MoE on a mesh (phase mesh_serve)
+# ---------------------------------------------------------------------------
+
+# minicpm-2b at its published widths, 8 of its 40 layers as phase serve
+# cuts it (MINICPM_2B_8L), bf16: 8 rows of 128 seeded prompt tokens and 64
+# greedy steps, with mesh=None, on the train layout and on serve2d of a
+# (1, 1) ("data", "model") mesh; deepseek-moe-16b at 2 layers as phase
+# families cuts it: 2 build_training steps at 2 x 512 on the mesh and with
+# mesh=None, decode (8 rows, 16 prompt tokens, 16 steps) on serve2d and
+# with mesh=None, and _route_ep on the mesh's one-rank model group over
+# 2 x 512 tokens against the local route at its capacity.
+MESH_SERVE = dict(rows=8, prompt=128, steps=64, moe_prompt=16, moe_steps=16,
+                  train_batch=2, train_seq=512)
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _mesh_decode(model, prompts, steps, table) -> dict:
+    """``make_prefill_step``'s logits of the last prompt position, the
+    teacher-forced prompt through the cached decode and its last
+    position's ``decode_step`` logits, ``steps`` greedy tokens through
+    ``make_serve_step`` (each step timed between synchronisations), then
+    one more step under the profiler (:func:`_profile`)."""
+    from repro_torch.launch import make_prefill_step, make_serve_step
+
+    B, P = prompts.shape
+    dev = prompts.device
+    out = {"prefill": _whole(make_prefill_step(model, tail=1, device=dev)(
+        {"tokens": prompts}))}
+    cache = model.init_decode(B, P + steps + 1)
+    for t in range(P - 1):
+        _, cache = model.decode_hidden(cache, prompts[:, t:t + 1])
+    logits, cache = model.decode_step(cache, prompts[:, P - 1:])
+    out["logits"] = _whole(logits)
+    tok = torch.argmax(out["logits"][:, -1], dim=-1)[:, None]
+    step = make_serve_step(model, device=dev)
+    toks, ms = [tok], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, cache = step(cache, tok)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(tok)
+    out["tokens"] = torch.cat(toks, dim=1)
+    out["ms"] = ms
+    out["profile"] = _profile(lambda: step(cache, tok), table)
+    return out
+
+
+def _same(a: dict, b: dict) -> dict:
+    return {k: bool(torch.equal(a[k], b[k]))
+            for k in ("prefill", "logits", "tokens")}
+
+
+def _decode_row(run) -> dict:
+    return {"decode_ms_per_step_median": statistics.median(run["ms"]),
+            "decode_ms_per_step_min": min(run["ms"]),
+            "profile_decode_step": run["profile"],
+            "peak_device_memory_bytes": run["peak_device_memory_bytes"],
+            "finite": bool(torch.isfinite(run["logits"]).all()
+                           and torch.isfinite(run["prefill"]).all())}
+
+
+def _route_ep_one_rank(model, mesh, device, tokens: int) -> dict:
+    """``moe._route_ep`` on the mesh's one-rank model group at the
+    model's widths (its first layer's experts and router, ``tokens``
+    seeded hidden states) against ``moe._route_local`` at the
+    expert-parallel route's own capacity: bitwise equal, and timed; at the
+    config's capacity factor and at 1.0, where tokens drop."""
+    from repro_torch.models import moe as tmoe
+
+    cfg, m = model.cfg, model.cfg.moe
+    ffn = {k: v[0].detach() for k, v in
+           model.params()["stack"]["sub0"]["ffn"].items()
+           if not isinstance(v, dict)}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn((tokens, cfg.d_model), generator=gen, device=device,
+                    dtype=torch.float32).to(ffn["we_gate"].dtype)
+    gate, idx, _, _ = tmoe._router(ffn["w_router"], x[None], m)
+    gate, idx = gate[0], idx[0]
+    w = [ffn[k] for k in ("we_gate", "we_up", "we_down")]
+    group = mesh.device_mesh(device).get_group("model")
+    out = {"tokens": tokens, "experts": m.num_experts, "top_k": m.top_k}
+    for cf in (m.capacity_factor, 1.0):
+        cap_e = tmoe._capacity(tmoe._capacity(tokens, m.top_k, 1, cf), 1,
+                               m.num_experts, cf)
+        timed = {}
+        with torch.no_grad():
+            for name, fn in (
+                    ("ep", lambda: tmoe._route_ep(
+                        x, idx, gate, *w, group=group, cap_factor=cf,
+                        act=cfg.act)),
+                    ("local", lambda: tmoe._route_local(
+                        x, idx, gate, *w, cap_factor=cf, act=cfg.act,
+                        cap=cap_e))):
+                y = fn()  # warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    y = fn()
+                torch.cuda.synchronize()
+                timed[name] = (y, (time.perf_counter() - t0) / 5 * 1e3)
+            _, keep = tmoe._bucket_positions(idx.reshape(-1),
+                                             m.num_experts, cap_e)
+        out[f"cf{cf}"] = {
+            "capacity": cap_e, "dropped_items": int((~keep).sum()),
+            "ep_ms": timed["ep"][1], "local_ms": timed["local"][1],
+            "bitwise_equal_local": bool(torch.equal(timed["ep"][0],
+                                                    timed["local"][0]))}
+    return out
+
+
+def phase_mesh_serve(smi, device="cuda", cfg=MINICPM_2B_8L,
+                     moe_cfg=CHIP_FAMILIES["deepseek-moe-16b-2l"],
+                     sizes=MESH_SERVE) -> dict:
+    """Serving and MoE on a mesh at world size 1 (``torch.distributed`` on
+    NCCL, gloo for a CPU rehearsal; one process, ``tcp://localhost``): the
+    cached decode and the prefill under the ``ShardingPolicy`` of a (1, 1)
+    ``("data", "model")`` mesh in both modes, bitwise equal to
+    ``mesh=None`` (every shard is the whole tensor), with each layout's
+    decode ms a step, launches, device busy / idle share of one profiled
+    step and peak memory; then deepseek-moe's training and ``serve2d``
+    decode against ``mesh=None`` and its expert-parallel route at one rank
+    (:func:`_route_ep_one_rank`).  The five kernels' launches on these
+    paths are counted (0: no model calls a kernel).  The process group is
+    destroyed at the end."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_mesh, make_policy
+    from repro_torch.models import build_model, init_params
+
+    t_phase = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo" if device == "cpu" else "nccl",
+        init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        layouts = (("plain", None, "train"), ("train", mesh, "train"),
+                   ("serve2d", mesh, "serve2d"))
+
+        def decode_runs(c, names, rows, prompt, steps, tag):
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            params = init_params(c, generator=gen, device=device)
+            prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+                0, c.vocab_size, (rows, prompt))).to(device)
+            runs = {}
+            for name, m, mode in layouts:
+                if name not in names:
+                    continue
+                _free()
+                model = build_model(c, params, device=device,
+                                    policy=make_policy(c, m, mode=mode,
+                                                       device=device))
+                runs[name] = _mesh_decode(
+                    model, prompts, steps,
+                    f"profile_mesh_serve_{tag}_{name}_step.txt")
+                runs[name]["peak_device_memory_bytes"] = (
+                    torch.cuda.max_memory_allocated())
+                del model
+            del params
+            return runs
+
+        # the main path: counters zeroed just before, read just after
+        _reset_launches()
+        runs = decode_runs(cfg, ("plain", "train", "serve2d"),
+                           sizes["rows"], sizes["prompt"], sizes["steps"],
+                           "minicpm")
+        launches = _all_launches()
+        bitwise = {name: _same(runs[name], runs["plain"])
+                   for name in ("train", "serve2d")}
+        minicpm = {name: _decode_row(run) for name, run in runs.items()}
+        del runs
+
+        # deepseek-moe: training on the mesh, decode on serve2d
+        _reset_launches()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_moe_") as tmp:
+            train, params = {}, {}
+            for name, m in (("plain", None), ("mesh", mesh)):
+                run = _trainer_run(moe_cfg, 2, Path(tmp) / name, device,
+                                   mesh=m, seq_len=sizes["train_seq"],
+                                   global_batch=sizes["train_batch"],
+                                   microbatch=sizes["train_batch"])
+                params[name] = [_local(p).detach().cpu() for p in
+                                run["loop"].state["model"].leaves()]
+                train[name] = {k: run[k] for k in (
+                    "losses", "step_ms", "peak_device_memory_bytes")}
+                del run
+                _free()
+        moe_bitwise = {
+            "train_losses": train["mesh"]["losses"]
+            == train["plain"]["losses"],
+            "train_params": all(torch.equal(a, b) for a, b in
+                                zip(params["mesh"], params["plain"]))}
+        del params
+        moe_runs = decode_runs(moe_cfg, ("plain", "serve2d"), sizes["rows"],
+                               sizes["moe_prompt"], sizes["moe_steps"],
+                               "deepseek")
+        moe_bitwise["serve2d_decode"] = _same(moe_runs["serve2d"],
+                                              moe_runs["plain"])
+        moe_decode = {name: _decode_row(run) for name, run in
+                      moe_runs.items()}
+        del moe_runs
+        moe_launches = _all_launches()
+        _free()
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        model = build_model(moe_cfg, generator=gen, device=device)
+        route = _route_ep_one_rank(model, mesh, device,
+                                   sizes["train_batch"] * sizes["train_seq"])
+        del model
+        _free()
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "mesh_serve", "world": 1,
+          "mesh": [[1, 1], ["data", "model"]], "nvidia_smi": smi,
+          "minicpm": {"config": cfg.name, "layers": cfg.num_layers,
+                      "dtype": cfg.dtype, "rows": sizes["rows"],
+                      "prompt": sizes["prompt"], "steps": sizes["steps"],
+                      "layouts": minicpm, "bitwise_equal_plain": bitwise},
+          "deepseek": {"config": moe_cfg.name, "layers": moe_cfg.num_layers,
+                       "dtype": moe_cfg.dtype,
+                       "train": {"batch": [sizes["train_batch"],
+                                           sizes["train_seq"]], **train},
+                       "decode": {"rows": sizes["rows"],
+                                  "prompt": sizes["moe_prompt"],
+                                  "steps": sizes["moe_steps"],
+                                  "layouts": moe_decode},
+                       "bitwise_equal_plain": moe_bitwise,
+                       "route_ep_one_rank": route},
+          "kernel_launches_on_this_path": {"minicpm": launches,
+                                           "deepseek": moe_launches},
+          "phase_s": time.perf_counter() - t_phase})
+    bad = [f"{name} {k}" for name, row in bitwise.items()
+           for k, ok in row.items() if not ok]
+    bad += [k for k, ok in moe_bitwise.items()
+            if not (all(ok.values()) if isinstance(ok, dict) else ok)]
+    bad += [f"{name} not finite" for name, row in
+            {**minicpm, **moe_decode}.items() if not row["finite"]]
+    bad += [f"route_ep != the local route at one rank, {k}"
+            for k, row in route.items()
+            if isinstance(row, dict) and not row["bitwise_equal_local"]]
+    if not route["cf1.0"]["dropped_items"]:
+        bad.append("route_ep at capacity factor 1.0 dropped nothing")
+    if bad:
+        raise AssertionError(f"phase mesh_serve: {bad}")
+    if any(launches.values()) or any(moe_launches.values()):
+        raise AssertionError("a kernel ran on the mesh serving path")
+    return launches
+
+
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
@@ -2783,6 +3046,7 @@ def main() -> None:
     dp_ef_launches = phase_dp_ef(smi)
     whisper_launches = phase_whisper(smi)
     mesh_launches = phase_mesh(smi)
+    mesh_serve_launches = phase_mesh_serve(smi)
     t4 = k["timing"][4]
     replaces = {"quantize_pack": "src/repro/kernels/transport.py:158",
                 "unpack_dequantize": "src/repro/kernels/transport.py:222"}
@@ -2802,6 +3066,8 @@ def main() -> None:
          "launches_whisper_train": whisper_launches[name],
          # make_grad_sync over DTensors at int4 and int8 (phase mesh)
          "launches_mesh_grad_sync": mesh_launches[name],
+         # decode and prefill on a (1, 1) mesh (phase mesh_serve)
+         "launches_mesh_serve": mesh_serve_launches[name],
          "max_abs_err": k["max_abs_err"],
          "ms": t4[name][0], "plain_ms": t4[name][1],
          "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
@@ -2832,6 +3098,7 @@ def main() -> None:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": where, "launches": full["launches"][name],
             "launches_families_serve": 0,
+            "launches_mesh_serve": mesh_serve_launches[name],
             "launches_trainer": trainer_launches[name],
             "max_abs_err": max([ops_err[name]]
                                + [c["max_abs_err"] for c in rows]),

@@ -35,6 +35,10 @@ engine returns its input.
   ``C`` ragged pipeline chunks.
 * :func:`mla_pipelined_allreduce` — MLA at the model-optimal depth.
 * :func:`psum_allreduce` — one native allreduce over the whole grid.
+* :func:`all_to_all` — ``lax.all_to_all(x, axis, 0, 0, tiled=False)``
+  over one mesh dimension's process group, with its backward (the same
+  exchange): the expert-parallel hop of the MoE routes; :func:`psum`,
+  the differentiable sum over such a group.
 * :func:`mla_reduce_scatter` / :func:`mla_allgather` — the two halves of
   MLA as collectives of their own: rank ``(node j, lane r)`` owns block
   ``(r, j)`` of the stripe layout, ``ceil(ceil(e/ppn)/n)`` elements;
@@ -66,6 +70,8 @@ __all__ = [
     "mla_allgather",
     "flat_reduce_scatter",
     "flat_allgather",
+    "all_to_all",
+    "psum",
     "auto_crossover_bytes",
     "select_algorithm",
     "hierarchical_allreduce",
@@ -158,6 +164,60 @@ def _all_to_all(tiles: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(tiles)
     dist.all_to_all_single(out, tiles, group=group.handle)
     return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # row t of the output came from rank t's row ``rank``: the
+        # transpose sends every row back the same way
+        return _AllToAll.apply(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (k, ...) over the k ranks of ``group`` (a ``torch.distributed``
+    process group, e.g. ``DeviceMesh.get_group(axis)``): row ``t`` goes to
+    rank ``t``, and row ``t`` of the result came from rank ``t`` — the
+    reference's ``lax.all_to_all(x, axis, 0, 0, tiled=False)``.
+    Differentiable: the gradient takes the same exchange.  A group of one
+    rank returns ``x``."""
+    k = dist.get_world_size(group)
+    if x.shape[0] != k:
+        raise ValueError(f"all_to_all over {k} ranks needs {k} rows, got "
+                         f"{tuple(x.shape)}")
+    if k == 1:
+        return x
+    return _AllToAll.apply(x, group)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return _PSum.apply(g, ctx.group), None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (a process group), as
+    ``lax.psum`` inside the reference's ``shard_map``: differentiable, the
+    gradient summed the same way.  A group of one rank returns ``x``."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _PSum.apply(x, group)
 
 
 def _all_gather(x: torch.Tensor, group) -> torch.Tensor:

@@ -12,7 +12,10 @@ the abstract specs read: axis names and a grid of ranks (row-major, as
 ``jax.sharding.Mesh`` lays out its devices).  :meth:`Mesh.device_mesh`
 gives the ``torch.distributed`` :class:`DeviceMesh` over the same grid,
 on which DTensors are placed: rank ``r`` sits where device ``r`` sits in
-the reference's mesh.
+the reference's mesh.  ``device_mesh(order=)`` builds the same grid with
+its dimensions in another order (the ``serve2d`` policy's joint axis is
+model-major: ``("model", "data")`` on a ``("data", "model")`` mesh), over
+the same rank -> coordinate map.
 """
 
 from __future__ import annotations
@@ -55,9 +58,12 @@ class Mesh:
     def devices(self) -> np.ndarray:
         return np.arange(math.prod(self.shape)).reshape(self.shape)
 
-    def device_mesh(self, device=None):
+    def device_mesh(self, device=None, order=None):
         """The ``DeviceMesh`` of this grid on ``device``'s type (``cuda``
-        unless asked otherwise), with this mesh's axis names.
+        unless asked otherwise), with this mesh's axis names, its
+        dimensions in ``order`` (a permutation of the names; the mesh's
+        own by default): the grid transposed, so rank ``r`` keeps its
+        coordinate on every named axis.
         ``torch.distributed`` must be initialised with one rank per grid
         point; every rank calls this in the same order (it
         builds one group per mesh axis and row, once per process group)."""
@@ -73,12 +79,17 @@ class Mesh:
         if dist.get_world_size() != math.prod(self.shape):
             raise ValueError(f"world size {dist.get_world_size()} != mesh "
                              f"{self.shape}")
-        key = (self.shape, self.axis_names, dev.type)
+        order = tuple(order) if order is not None else self.axis_names
+        if sorted(order) != sorted(self.axis_names):
+            raise ValueError(f"axis order {order} is not a permutation of "
+                             f"{self.axis_names}")
+        key = (self.shape, self.axis_names, order, dev.type)
         world = dist.group.WORLD
         hit = _DEVICE_MESHES.get(key)
         if hit is None or hit[0] is not world:
-            dm = DeviceMesh(dev.type, self.devices.tolist(),
-                            mesh_dim_names=self.axis_names)
+            grid = np.transpose(self.devices,
+                                [self.axis_names.index(a) for a in order])
+            dm = DeviceMesh(dev.type, grid.tolist(), mesh_dim_names=order)
             hit = _DEVICE_MESHES[key] = (world, dm)
         return hit[1]
 
@@ -117,10 +128,17 @@ def hierarchy_axes(mesh) -> tuple[tuple[str, ...], tuple[str, ...]]:
     return (), intra
 
 
-def mesh_topology(n_nodes: int = 1, ppn: int = 1, *, params=None) -> Topology:
-    """The executable :class:`Topology` of this process's world (groups
-    built once).  ``torch.distributed`` must be initialised with
-    ``n_nodes * ppn`` ranks, or not at all for a grid of one.  A mesh's
-    DP topology (one per index of its other axes) is
-    :meth:`Topology.from_mesh`."""
-    return Topology.from_world(n_nodes, ppn, params=params)
+def mesh_topology(mesh=1, ppn: int = 1, *, params=None) -> Topology:
+    """The executable :class:`Topology` of a mesh or of this process's world.
+
+    ``mesh_topology(mesh)`` (a :class:`Mesh`) is the reference's entry
+    point: :meth:`Topology.from_mesh`, the DP hierarchy from
+    :func:`hierarchy_axes` (a ``pod`` axis is the slow domain), one DP grid
+    per index of the mesh's other axes.  ``mesh_topology(n_nodes, ppn)``
+    is the world of ``n_nodes * ppn`` ranks, rank ``node * ppn + lane``
+    (groups built once); ``torch.distributed`` must be initialised with
+    that many ranks, or not at all for a grid of one.  ``params``
+    overrides the machine constants."""
+    if isinstance(mesh, Mesh):
+        return Topology.from_mesh(mesh, params=params)
+    return Topology.from_world(mesh, ppn, params=params)

@@ -60,7 +60,7 @@ def make_serve_shard(model, ctx: comm.CommContext | None, *, gen_len: int,
 
 def serve_batch(model, prompts: torch.Tensor, *, gen_len: int,
                 max_len: int | None = None,
-                batch_extras: dict | None = None,
+                batch_extras: dict | None = None, mesh=None,
                 ctx: comm.CommContext | None = None,
                 eos_id: int | None = None, device=None) -> torch.Tensor:
     """prompts: (B, P) token ids.  Returns (B, gen_len) generated tokens.
@@ -68,9 +68,40 @@ def serve_batch(model, prompts: torch.Tensor, *, gen_len: int,
     ``batch_extras``: an encoder-decoder's ``{"frames": (B, S_enc, D)}``,
     given to ``init_decode``.  With a multi-rank ``ctx``, ``prompts`` are
     this rank's rows and the early exit is agreed by the group; that path
-    takes no extras."""
+    takes no extras.
+
+    With a ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`; every rank
+    of a world of its size calls this with the whole batch), as the
+    reference's: ``ctx`` is built from the mesh if not given
+    (``Topology.from_mesh``: one group over its DP axes), each rank serves
+    its block of the rows over those axes (``B`` must divide), the early
+    exit is agreed by the group, and every rank returns the whole (B,
+    gen_len).  That path takes no extras either."""
     device = require_on(model, device)
     B, P_len = prompts.shape
+    if mesh is not None:
+        if batch_extras is not None:
+            raise NotImplementedError(
+                "batch_extras (encoder frames) are not supported on the "
+                "meshed serve path yet"
+            )
+        if ctx is None:
+            ctx = comm.CommContext(comm.Topology.from_mesh(mesh))
+        topo = ctx.topology
+        shards = topo.group
+        if B % shards:
+            raise ValueError(f"batch {B} does not shard over {shards} "
+                             f"ranks ({topo.axes})")
+        b = B // shards
+        rank = topo.require_groups().rank if shards > 1 else 0
+        rows = serve_batch(model, prompts[rank * b:(rank + 1) * b],
+                           gen_len=gen_len, max_len=max_len or (
+                               P_len + gen_len),
+                           ctx=ctx, eos_id=eos_id, device=device)
+        if shards == 1:
+            return rows
+        return ctx.allgather(rows.reshape(-1), elems=rows.numel() * shards,
+                             algorithm="all_gather").reshape(B, gen_len)
     if batch_extras is not None:
         if ctx is not None and ctx.topology.group > 1:
             raise NotImplementedError(

@@ -266,13 +266,17 @@ def make_prefill_step(model, *, tail: int = 128, device=None):
     """``prefill_step(batch) -> logits`` (B, min(tail, S), V) float32: the
     prompt's forward pass (``tokens``, or ``embeds`` with ``positions``;
     an encoder-decoder's ``frames`` with them), logits for its last
-    ``tail`` positions."""
+    ``tail`` positions.  A model on a mesh runs it under its policy (the
+    logits are then a DTensor)."""
     require_on(model, device)
+    policy = model.policy
 
     @torch.no_grad()
     def prefill_step(batch):
-        hidden, _ = _final_hidden(model.params(), batch, model.cfg)
-        return head_dot(hidden[:, -tail:], model.head_weights())
+        with policy.scope():
+            hidden, _ = _final_hidden(model.params(), batch, model.cfg,
+                                      policy)
+            return head_dot(hidden[:, -tail:], model.head_weights())
 
     return prefill_step
 
@@ -282,7 +286,8 @@ def make_serve_step(model, ctx: comm.CommContext | None = None, *,
     """One-token cached greedy decode, ``step(cache, tokens) -> (next
     tokens, cache)`` (:func:`repro_torch.serve.decode.greedy_step`): with a
     multi-rank ``ctx`` the head is tensor-parallel, without it the local
-    head (the same contraction)."""
+    head (the same contraction); a model on a mesh runs its own head under
+    its policy and takes no ``ctx``."""
     from ..serve.decode import greedy_step
 
     require_on(model, device)
@@ -308,19 +313,20 @@ def _meta(shape, dtype, mesh=None, spec=()) -> torch.Tensor:
     return t
 
 
-def input_specs(arch: str, shape_name: str,
-                mesh=None) -> dict[str, torch.Tensor]:
+def input_specs(arch: str, shape_name: str, mesh=None, *,
+                serve2d: bool = False) -> dict[str, torch.Tensor]:
     """The abstract batch of one (arch x shape) cell, as ``meta`` tensors
     with the reference's shapes and dtypes: ``tokens`` int32 (B, S) (B, 1
     for decode), or ``embeds`` (and (3, B, S) ``positions``) for the VLM
     stub; ``frames`` (B, S, D) for an encoder-decoder; ``labels`` and
     ``loss_mask`` for a train shape.  With a ``mesh`` each leaf's
-    ``.spec`` puts its batch rows over the mesh's DP axes."""
+    ``.spec`` puts its batch rows over the mesh's DP axes; ``serve2d``
+    (the serving layout) leaves the batch replicated."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     B, S = shape.global_batch, shape.seq_len
     act = _dtype(cfg)
-    dp = mesh_dp_axes(mesh) if mesh is not None else None
+    dp = mesh_dp_axes(mesh) if mesh is not None and not serve2d else None
     rows = lambda shp, dtype: _meta(shp, dtype, mesh, (dp,))  # noqa: E731
     batch: dict[str, torch.Tensor] = {}
     if shape.kind == "decode":
@@ -347,7 +353,8 @@ def input_specs(arch: str, shape_name: str,
 def state_specs(arch: str, shape_name: str, mesh=None, *,
                 opt_cfg: OptimizerConfig | None = None,
                 seq_parallel: bool = False,
-                cfg_overrides: dict | None = None):
+                cfg_overrides: dict | None = None,
+                serve2d: bool = False):
     """The abstract state of one cell: ``(model, policy, tree, opt_cfg)``
     with ``tree`` = ``{"params", "opt"}`` for a train shape, ``{"params"}``
     for prefill and ``{"params", "cache"}`` for decode (an
@@ -356,13 +363,15 @@ def state_specs(arch: str, shape_name: str, mesh=None, *,
     parameters.  The moments are bf16 above 1e11 parameters unless
     ``opt_cfg`` says otherwise.  With a ``mesh`` every parameter and
     moment carries its ``param_specs`` entry as ``.spec`` and every cache
-    leaf its layout (the reference's ``_cache_spec``); the AdamW step is
-    an int and carries none."""
+    leaf its layout (:meth:`ShardingPolicy.cache_spec`, the reference's
+    ``_cache_spec``); the AdamW step is an int and carries none.
+    ``serve2d`` builds the policy in the serving layout."""
     cfg = get_config(arch)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
     shape = SHAPES[shape_name]
-    policy = make_policy(cfg, mesh, seq_parallel=seq_parallel)
+    policy = make_policy(cfg, mesh, seq_parallel=seq_parallel,
+                         mode="serve2d" if serve2d else "train")
     opt_cfg = opt_cfg or OptimizerConfig(
         moment_dtype="bfloat16" if cfg.param_count() > 1e11 else "float32"
     )
@@ -389,51 +398,14 @@ def state_specs(arch: str, shape_name: str, mesh=None, *,
     return model, policy, out, opt_cfg
 
 
-def _cache_spec(policy: ShardingPolicy, name: str, shape) -> tuple:
-    """The layout of one decode-cache leaf in train mode (the reference's
-    ``_cache_spec``; its serve2d branch is a later slice).  The port's
-    cache keeps one ``index`` and one ring ``pos`` row a batch row; those
-    rows go over the DP axes as every other batch-row leaf does."""
-    dp, tp = policy.dp, policy.tp_axis
-    ok = lambda dim, axes: dim % _axis_prod(policy.mesh, axes) == 0  # noqa
-
-    if name in ("k", "v"):  # (n_super, B, KV, size, hd)
-        _, B, KV, size, _ = shape
-        if tp and KV % policy.tp_size == 0 and ok(B, dp):
-            return (None, dp, tp, None, None)
-        if tp and size % policy.tp_size == 0:
-            return (None, dp if ok(B, dp) else None, None, tp, None)
-        return (None, dp if ok(B, dp) else None, None, None, None)
-    if name == "state":  # mamba (n,B,d_in,N) / rwkv (n,B,H,hd,hd)
-        spec = (None, dp if ok(shape[1], dp) else None)
-        if tp and shape[2] % policy.tp_size == 0:
-            spec += (tp,)
-        return spec
-    if name in ("conv", "x_prev", "cm_x_prev", "pos"):
-        return (None, dp if ok(shape[1], dp) else None, None)
-    if name == "enc_out":
-        return (dp if ok(shape[0], dp) else None, None, None)
-    if name == "index":
-        return (dp if ok(shape[0], dp) else None,)
-    return ()
-
-
-def _axis_prod(mesh, axes) -> int:
-    if not axes:
-        return 1
-    axes = axes if isinstance(axes, tuple) else (axes,)
-    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
-    return math.prod(sizes[a] for a in axes)
-
-
 def _attach_cache_specs(cache: dict, policy: ShardingPolicy) -> None:
-    def walk(node, name):
+    specs = policy.cache_specs(cache)
+
+    def walk(node, spec):
         if isinstance(node, dict):
             for k, v in node.items():
-                walk(v, k)
+                walk(v, spec[k])
             return
-        node.spec = _fit_spec(node.shape,
-                              _cache_spec(policy, name, tuple(node.shape)),
-                              policy.mesh)
+        node.spec = spec
 
-    walk(cache, "")
+    walk(cache, specs)

@@ -28,7 +28,7 @@ import math
 import torch
 
 from .layers import apply_rope, dense, init_dense, softcap
-from .sharding import ShardingPolicy
+from .sharding import ShardingPolicy, block_index, from_block, is_dtensor
 
 __all__ = ["init_attention", "attention_full", "init_cache",
            "attention_decode"]
@@ -196,44 +196,130 @@ def init_cache(cfg, batch: int, max_len: int, *, window: int | None, dtype,
     }
 
 
-def attention_decode(params, x: torch.Tensor, cache: dict,
-                     index: torch.Tensor, *, cfg,
-                     window: int | None = None,
-                     kv_src: torch.Tensor | None = None):
-    """One-token decode. x: (B, 1, D); ``index`` (B,) the position each row
-    writes; ``cache`` as from :func:`init_cache` (no lead dims), updated in
-    place and returned.  With ``kv_src`` (B, Sk, D), cross-attention over
-    all of it; the cache is returned untouched."""
-    if kv_src is not None:
-        return attention_full(params, x, cfg=cfg, positions=index[:, None],
-                              causal=False, kv_src=kv_src), cache
-    B = x.shape[0]
-    hd, K = cfg.resolved_head_dim, cfg.num_kv_heads
-    G = cfg.num_heads // K
-    pos_in = index[:, None]
-    q, k_new, v_new = _project_qkv(params, x, x, cfg, pos_in, pos_in)
-    k, v, pos = cache["k"], cache["v"], cache["pos"]
-    size = k.shape[2]
-    rows = torch.arange(B, device=x.device)
+def _write_slot(k, v, pos, k_new, v_new, index, off: int, size: int):
+    """Each row's new key / value into ring slot ``index % size`` of its
+    cache block: ``k`` / ``v`` (B, KV, n, hd) hold positions ``[off, off +
+    n)`` of the ring, ``pos`` (B, size) all of it.  A slot outside the
+    block is not written (its row keeps the value it had)."""
+    B, n = k.shape[0], k.shape[2]
+    rows = torch.arange(B, device=k.device)
     slot = torch.remainder(index, size).long()
-    k[rows, :, slot] = k_new[:, 0]
-    v[rows, :, slot] = v_new[:, 0]
     pos[rows, slot] = index.to(torch.int32)
+    if off == 0 and n == size:
+        k[rows, :, slot] = k_new
+        v[rows, :, slot] = v_new
+        return
+    local = slot - off
+    own = ((local >= 0) & (local < n))[:, None, None]
+    local = local.clamp(0, n - 1)
+    k[rows, :, local] = torch.where(own, k_new, k[rows, :, local])
+    v[rows, :, local] = torch.where(own, v_new, v[rows, :, local])
 
-    # q (B, K, G, h) against the row's cache k (B, K, size, h): float32
-    # products of the inputs, as the reference's preferred_element_type
-    q = q.reshape(B, K, G, hd)
+
+def _attend_cached(q, k, v, pos, index, cfg, window, merge=None):
+    """q (B, K, G, h) against the cache block k / v (B, K, n, h) whose ring
+    positions are ``pos`` (B, n): float32 products of the inputs, as the
+    reference's preferred_element_type.  ``merge(t, op)`` (op "max" or
+    "sum") reduces over the ranks that hold the other blocks of the same
+    rows and heads: the softmax's max and sum and the weighted sum are
+    merged across them.  Returns (B, K, G, h) float32."""
     scores = torch.matmul(
         q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)
-    ) * (1.0 / math.sqrt(hd))
+    ) * (1.0 / math.sqrt(cfg.resolved_head_dim))
     scores = softcap(scores, cfg.attn_logit_softcap)
     idx = index[:, None]
     valid = (pos >= 0) & (pos <= idx)
     if window is not None:
         valid &= pos > idx - window
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.matmul(probs.to(v.dtype).to(torch.float32),
-                       v.to(torch.float32)).to(x.dtype)
+    if merge is None:
+        probs = torch.softmax(scores, dim=-1)
+        return torch.matmul(probs.to(v.dtype).to(torch.float32),
+                            v.to(torch.float32))
+    m = merge(scores.amax(dim=-1, keepdim=True), "max")
+    e = torch.exp(scores - m)
+    probs = e / merge(e.sum(dim=-1, keepdim=True), "sum")
+    return merge(torch.matmul(probs.to(v.dtype).to(torch.float32),
+                              v.to(torch.float32)), "sum")
+
+
+def _decode_on_mesh(policy, q, k_new, v_new, cache, index, cfg, window):
+    """The cached attention of :func:`attention_decode` on each rank's block
+    of a cache laid out by ``policy.cache_spec`` (rows over the DP axes;
+    KV heads, or the ring's positions, over the TP axis in train mode; the
+    positions over the joint axes in ``serve2d``).  The query and the new
+    key / value are laid out as the cache's rows and heads; the rank whose
+    block holds a row's slot writes it; with the positions sharded, each
+    rank scores its block and the softmax is merged over the ranks of the
+    same rows (:func:`_attend_cached`).  Returns (B, 1, H * hd) with the
+    rows and heads where the cache has them."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
+    k, v, pos = cache["k"], cache["v"], cache["pos"]
+    dm = k.device_mesh
+    lay = list(k.placements)  # on (B, KV, size, hd)
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in lay]
+    if list(pos.placements) != rows:
+        raise ValueError(f"cache pos {pos.placements} does not follow the "
+                         f"rows of k {k.placements}")
+    heads = [Shard(2) if p == Shard(1) else r for p, r in zip(lay, rows)]
+    seq_dims = [i for i, p in enumerate(lay)
+                if p == Shard(2) and dm.size(i) > 1]
+    ql, kl, vl = (t.redistribute(dm, heads).to_local()
+                  for t in (q, k_new, v_new))
+    if not is_dtensor(index):
+        index = policy.constrain(index, ())
+    idx = index.redistribute(dm, rows).to_local()
+    kb, vb, pb = k.to_local(), v.to_local(), pos.to_local()
+    size, n = k.shape[2], kb.shape[2]
+    off = block_index(dm, seq_dims) * n
+    _write_slot(kb, vb, pb, kl[:, 0], vl[:, 0], idx, off, size)
+
+    merge = None
+    if seq_dims:
+        ops = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}
+
+        def merge(t, op):
+            t = t.contiguous()
+            for i in seq_dims:
+                dist.all_reduce(t, op=ops[op], group=dm.get_group(i))
+            return t
+
+    b, kh = ql.shape[0], kb.shape[1]
+    out = _attend_cached(ql.reshape(b, kh, -1, ql.shape[-1]), kb, vb,
+                         pb[:, off:off + n], idx, cfg, window, merge)
+    out = out.to(ql.dtype).reshape(b, 1, -1)
+    return from_block(out, dm, heads)
+
+
+def attention_decode(params, x: torch.Tensor, cache: dict,
+                     index: torch.Tensor, *, cfg,
+                     window: int | None = None,
+                     kv_src: torch.Tensor | None = None,
+                     policy: ShardingPolicy = ShardingPolicy()):
+    """One-token decode. x: (B, 1, D); ``index`` (B,) the position each row
+    writes; ``cache`` as from :func:`init_cache` (no lead dims), updated in
+    place and returned.  With ``kv_src`` (B, Sk, D), cross-attention over
+    all of it; the cache is returned untouched.  On a mesh the cache is a
+    tree of DTensors laid out by ``policy`` (:func:`_decode_on_mesh`) and
+    the new keys and values are laid out as ``cache`` (the reference's
+    ``act(kind="cache")``) before they are written."""
+    if kv_src is not None:
+        return attention_full(params, x, cfg=cfg, positions=index[:, None],
+                              causal=False, kv_src=kv_src,
+                              policy=policy), cache
+    B = x.shape[0]
+    hd, K = cfg.resolved_head_dim, cfg.num_kv_heads
+    pos_in = index[:, None]
+    q, k_new, v_new = _project_qkv(params, x, x, cfg, pos_in, pos_in)
+    if policy.mesh is not None:
+        out = _decode_on_mesh(policy, q, k_new, v_new, cache, index, cfg,
+                              window)
+        return dense(out, params["w_o"]), cache
+    _write_slot(cache["k"], cache["v"], cache["pos"], k_new[:, 0],
+                v_new[:, 0], index, 0, cache["k"].shape[2])
+    out = _attend_cached(q.reshape(B, K, -1, hd), cache["k"], cache["v"],
+                         cache["pos"], index, cfg, window).to(x.dtype)
     y = dense(out.reshape(B, 1, cfg.num_heads * hd), params["w_o"])
     return y, cache

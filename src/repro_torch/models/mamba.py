@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import dense, init_dense
+from .sharding import assign, settle
 
 __all__ = ["init_mamba", "mamba_full", "init_mamba_cache", "mamba_decode"]
 
@@ -57,7 +58,9 @@ def init_mamba(cfg, dtype, *, lead=(), generator, device):
 
 def _dt_B_C(params, x, cfg):
     m, _, dt_rank = _dims(cfg)
-    proj = dense(x, params["x_proj"])
+    # on a mesh the channel contraction is a partial sum: reduce it before
+    # the split (its dt meets the sharded dt_bias)
+    proj = settle(dense(x, params["x_proj"]))
     dt, B, C = torch.split(proj, [dt_rank, m.d_state, m.d_state], dim=-1)
     dt = F.softplus(
         dense(dt, params["w_dt"]).to(torch.float32) + params["dt_bias"]
@@ -129,6 +132,6 @@ def mamba_decode(params, u: torch.Tensor, cache: dict, *, cfg):
     y = y + x.to(torch.float32) * params["D"]
     y = y.to(u.dtype) * F.silu(z)
     out = dense(y, params["w_out"])[:, None]
-    cache["conv"].copy_(hist[:, 1:])
-    cache["state"].copy_(state)
+    assign(cache["conv"], hist[:, 1:])
+    assign(cache["state"], state)
     return out, cache

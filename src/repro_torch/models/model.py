@@ -52,7 +52,7 @@ from torch import nn
 
 from . import transformer as tfm
 from .layers import head_dot, mixed_bwd, rms_norm, softcap
-from .sharding import ShardingPolicy
+from .sharding import ShardingPolicy, is_dtensor
 from .. import tree as tree_util
 from ..device import resolve_device
 
@@ -212,13 +212,25 @@ class Model(nn.Module):
             "stack": tfm.init_stack_cache(cfg, batch_size, max_len,
                                           _dtype(cfg), device=self.device),
         }
+        # a model on meta under a policy only describes a layout
+        policy = self.policy if self.on_mesh else ShardingPolicy()
+        cache = policy.shard_cache(cache)
         if cfg.encoder_layers:
             if batch is None or "frames" not in batch:
                 raise ValueError(f"{cfg.name}: an encoder-decoder's decode "
                                  "cache needs the encoder frames "
                                  "(batch['frames'])")
-            cache["enc_out"] = _encode(self.params(), batch["frames"], cfg)
+            with policy.scope():
+                enc = _encode(self.params(), batch["frames"], cfg, policy)
+                cache["enc_out"] = policy.constrain(
+                    enc, policy.cache_spec("enc_out", tuple(enc.shape)))
         return cache
+
+    @property
+    def on_mesh(self) -> bool:
+        """Whether the parameters are DTensors laid out by the policy."""
+        return self.policy.mesh is not None and is_dtensor(
+            self.root.final_norm)
 
     @torch.no_grad()
     def decode_hidden(self, cache: dict, tokens: torch.Tensor, *,
@@ -229,28 +241,36 @@ class Model(nn.Module):
         then advances by one.  ``moe_per_row``: route each row's MoE token
         as its own group (the serving engine's slots) instead of the batch
         as one.  The cache is updated in place; returns ``(hidden (B, 1,
-        D), cache)``."""
-        cfg = self.cfg
+        D), cache)``.  On a mesh the cache is laid out by the policy
+        (:meth:`init_decode`), the tokens are the whole batch (or a
+        DTensor), and the hidden state is laid out as ``hidden`` after the
+        embedding and at every super-layer, as the reference's."""
+        cfg, policy = self.cfg, self.policy
         p = self.params()
         index = cache["index"]
-        if tokens.dim() == 3:
-            x = tokens.to(_dtype(cfg))
-        else:
-            x = _embed_tokens(p, tokens, cfg)
-        x, _ = tfm.stack_decode(p["stack"], x, cache["stack"], index,
-                                cfg=cfg, moe_per_row=moe_per_row,
-                                enc_out=cache.get("enc_out"))
-        x = rms_norm(x, p["final_norm"], cfg.norm_eps)
-        index.add_(1)
+        with policy.scope():
+            if tokens.dim() == 3:
+                x = tokens.to(_dtype(cfg))
+            else:
+                x = _embed_tokens(p, policy.constrain(tokens, ()), cfg)
+            x = policy.act(x, kind="hidden")
+            x, _ = tfm.stack_decode(p["stack"], x, cache["stack"], index,
+                                    cfg=cfg, moe_per_row=moe_per_row,
+                                    enc_out=cache.get("enc_out"),
+                                    policy=policy)
+            x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+            index.add_(1)
         return x, cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor):
         """:meth:`decode_hidden` plus the head: ``(logits (B, 1, V) float32,
-        cache)``."""
+        cache)``, laid out as ``logits`` on a mesh."""
         x, cache = self.decode_hidden(cache, tokens)
-        logits = head_dot(x, self.head_weights())
-        return softcap(logits, self.cfg.final_logit_softcap), cache
+        with self.policy.scope():
+            logits = softcap(head_dot(x, self.head_weights()),
+                             self.cfg.final_logit_softcap)
+            return self.policy.act(logits, kind="logits"), cache
 
 
 def _embed_tokens(params, tokens, cfg):

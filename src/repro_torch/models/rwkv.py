@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .layers import dense, init_dense
+from .sharding import assign
 
 __all__ = ["init_rwkv", "rwkv_full", "init_rwkv_cache", "rwkv_decode",
            "init_rwkv_cm", "rwkv_cm_full", "rwkv_cm_decode"]
@@ -143,8 +144,8 @@ def rwkv_decode(params, x: torch.Tensor, cache: dict, *, cfg):
     out, state = _step(cache["state"], r, k, v, w, params["bonus"])
     y = _group_norm(out.reshape(B, -1), params["ln_x_scale"], H, hd)
     y = dense(y.to(x.dtype), params["w_o"])[:, None]
-    cache["x_prev"].copy_(xt)
-    cache["state"].copy_(state)
+    assign(cache["x_prev"], xt)
+    assign(cache["state"], state)
     return y, cache
 
 
@@ -177,5 +178,5 @@ def rwkv_cm_decode(params, x: torch.Tensor, cache: dict):
     """x (B, 1, D); updates the cache's ``cm_x_prev`` in place."""
     xt = x[:, 0]
     out = _cm(params, xt, cache["cm_x_prev"])[:, None]
-    cache["cm_x_prev"].copy_(xt)
+    assign(cache["cm_x_prev"], xt)
     return out

@@ -25,6 +25,21 @@ DTensor never sees a ragged shard.  The placements live on the mesh's
 :meth:`~repro_torch.launch.mesh.Mesh.device_mesh` on the policy's
 ``device`` (``cuda`` unless asked otherwise).  With ``mesh=None`` every
 method is the identity.
+
+``serve2d``'s joint axis is model-major (``("model", "data")`` on a
+``("data", "model")`` mesh, as ``PartitionSpec(("model", "data"))`` lays
+it out): its policy places on a ``DeviceMesh`` whose dimensions come in
+the joint axis's order (:attr:`ShardingPolicy.axis_order`), over the same
+rank -> coordinate map, so rank ``r`` holds the shard of the reference's
+device ``r`` (DTensor's strided sharding would do the same through a
+private placement).
+
+The decode cache is laid out by :meth:`ShardingPolicy.cache_spec` (the
+reference's ``_cache_spec``, both modes; :meth:`~ShardingPolicy.
+shard_cache`) and written in place through :func:`assign`.  Code that
+runs on each rank's blocks with explicit collectives (the MoE routes, the
+shard_map regions of the reference) enters with :func:`local_block` and
+leaves with :func:`from_block`, which carry shard_map's gradient rule.
 """
 
 from __future__ import annotations
@@ -33,8 +48,11 @@ import contextlib
 import dataclasses
 import math
 
+import torch
+
 __all__ = ["ShardingPolicy", "REPLICATED", "placements", "is_dtensor",
-           "spec_leaves", "replicated_scope"]
+           "spec_leaves", "replicated_scope", "assign", "local_block",
+           "from_block", "block_index", "settle"]
 
 REPLICATED: tuple = ()
 
@@ -80,14 +98,15 @@ def spec_leaves(specs) -> list:
     return [tuple(specs)]
 
 
-def placements(mesh, spec: tuple) -> list:
-    """The DTensor placements of ``spec`` on ``mesh``: one per mesh axis.
-    An axis named on dimension ``d`` gives ``Shard(d)``; the axes of one
-    dimension must come in mesh order (DTensor shards major to minor in
-    mesh order, which is ``PartitionSpec``'s order then)."""
+def placements(mesh, spec: tuple, order=None) -> list:
+    """The DTensor placements of ``spec`` on ``mesh``: one per mesh axis,
+    in ``order`` (the ``DeviceMesh``'s dimension order; the mesh's own by
+    default).  An axis named on dimension ``d`` gives ``Shard(d)``; the
+    axes of one dimension must come in that order (DTensor shards major to
+    minor in its mesh order, which is ``PartitionSpec``'s order then)."""
     from torch.distributed.tensor import Replicate, Shard
 
-    names = tuple(mesh.axis_names)
+    names = tuple(order) if order is not None else tuple(mesh.axis_names)
     out = [Replicate() for _ in names]
     for dim, entry in enumerate(spec):
         if entry is None:
@@ -158,9 +177,24 @@ class ShardingPolicy:
         return replicated_scope()
 
     @property
+    def axis_order(self) -> tuple[str, ...]:
+        """The dimension order of :attr:`device_mesh`: the mesh's own, or
+        in ``serve2d`` the joint axis's (the model axis first, then the
+        others in mesh order), so its joint specs shard model-major."""
+        names = tuple(self.mesh.axis_names)
+        if self.mode == "serve2d" and self.tp_axis in names:
+            return (self.tp_axis,) + tuple(a for a in names
+                                           if a != self.tp_axis)
+        return names
+
+    @property
     def device_mesh(self):
         """The ``DeviceMesh`` the placements live on."""
-        return self.mesh.device_mesh(self.device)
+        return self.mesh.device_mesh(self.device, order=self.axis_order)
+
+    def placements(self, spec: tuple) -> list:
+        """The placements of ``spec`` on :attr:`device_mesh`."""
+        return placements(self.mesh, spec, self.axis_order)
 
     def constrain(self, x, spec: tuple):
         """``x`` laid out by ``spec`` (fitted to its shape): a DTensor
@@ -171,7 +205,13 @@ class ShardingPolicy:
         from torch.distributed.tensor import Replicate, distribute_tensor
 
         dm = self.device_mesh
-        want = placements(self.mesh, self._fit(tuple(x.shape), spec))
+        want = self.placements(self._fit(tuple(x.shape), spec))
+        if is_dtensor(x) and x.device_mesh != dm:
+            # placed on another dimension order: the whole value, replicated
+            from torch.distributed.tensor import DTensor
+
+            x = DTensor.from_local(x.full_tensor(), dm,
+                                   [Replicate()] * dm.ndim, run_check=False)
         if not is_dtensor(x):
             x = distribute_tensor(x, dm, [Replicate()] * dm.ndim,
                                   src_data_rank=None)
@@ -310,10 +350,91 @@ class ShardingPolicy:
             if isinstance(node, dict):
                 return {k: walk(v, spec[k]) for k, v in node.items()}
             return distribute_tensor(node.detach(), dm,
-                                     placements(self.mesh, spec),
+                                     self.placements(spec),
                                      src_data_rank=None)
 
         return walk(params, self.param_specs(params))
+
+    # ---- the decode cache -------------------------------------------------
+
+    def cache_spec(self, name: str, shape: tuple[int, ...]) -> tuple:
+        """The layout of one decode-cache leaf (the reference's
+        ``_cache_spec``), fitted to ``shape``.  The port's cache keeps one
+        ``index`` and one ring ``pos`` row a batch row: in train mode they
+        go over the DP axes as every other batch-row leaf does; in
+        ``serve2d`` the batch is replicated, and so are they."""
+        if self.mesh is None:
+            return REPLICATED
+        dp, tp = self.dp, self.tp_axis
+        ok = lambda dim, axes: dim % _axis_size(self.mesh, axes) == 0  # noqa
+        if self.mode == "serve2d":
+            joint = ((tp,) if tp else ()) + tuple(self.fsdp_axes or ())
+            joint = joint or None
+            if name in ("k", "v"):  # (n_super, B, KV, S, hd): S over the grid
+                ax = joint if ok(shape[3], joint) else (
+                    tp if tp and ok(shape[3], tp) else None)
+                spec = (None, None, None, ax, None)
+            elif name == "state":  # mamba (n,B,d_in,N) / rwkv (n,B,H,hd,hd)
+                ax = joint if ok(shape[2], joint) else (
+                    tp if tp and ok(shape[2], tp) else None)
+                spec = (None, None, ax)
+            elif name == "conv":  # (n, B, k, d_in)
+                spec = (None, None, None,
+                        joint if ok(shape[3], joint) else None)
+            else:  # x_prev, cm_x_prev, enc_out, index, pos
+                spec = REPLICATED
+            return self._fit(shape, _spec(*spec))
+        rows = lambda dim: dp if ok(dim, dp) else None  # noqa: E731
+        if name in ("k", "v"):  # (n_super, B, KV, size, hd)
+            _, B, KV, size, _ = shape
+            if tp and KV % self.tp_size == 0 and ok(B, dp):
+                spec = (None, dp, tp, None, None)
+            elif tp and size % self.tp_size == 0:
+                spec = (None, rows(B), None, tp, None)
+            else:
+                spec = (None, rows(B), None, None, None)
+        elif name == "state":  # mamba (n,B,d_in,N) / rwkv (n,B,H,hd,hd)
+            spec = (None, rows(shape[1]))
+            if tp and shape[2] % self.tp_size == 0:
+                spec += (tp,)
+        elif name in ("conv", "x_prev", "cm_x_prev", "pos"):
+            spec = (None, rows(shape[1]), None)
+        elif name == "enc_out":
+            spec = (rows(shape[0]), None, None)
+        elif name == "index":
+            spec = (rows(shape[0]),)
+        else:
+            spec = REPLICATED
+        return self._fit(shape, spec)
+
+    def cache_specs(self, cache) -> dict:
+        """Mirror tree of :meth:`cache_spec` for a decode cache (leaves need
+        only a ``shape``)."""
+
+        def walk(node, name):
+            if isinstance(node, dict):
+                return {k: walk(v, k) for k, v in node.items()}
+            return self.cache_spec(name, tuple(node.shape))
+
+        return walk(cache, "")
+
+    def shard_cache(self, cache):
+        """A whole decode cache (the same numbers on every rank) laid out by
+        :meth:`cache_specs`, each rank keeping its shards (the reference's
+        ``_attach_cache_shardings``).  The identity without a mesh."""
+        if self.mesh is None:
+            return cache
+        from torch.distributed.tensor import distribute_tensor
+
+        dm = self.device_mesh
+
+        def walk(node, spec):
+            if isinstance(node, dict):
+                return {k: walk(v, spec[k]) for k, v in node.items()}
+            return distribute_tensor(node, dm, self.placements(spec),
+                                     src_data_rank=None)
+
+        return walk(cache, self.cache_specs(cache))
 
     # ---- activation constraints -------------------------------------------
 
@@ -359,3 +480,90 @@ class ShardingPolicy:
             return self.constrain(x, (dp, None, tp, None))
         raise ValueError(kind)
 
+
+
+# ---------------------------------------------------------------------------
+# in-place writes and per-rank regions on a mesh
+# ---------------------------------------------------------------------------
+
+
+def assign(dst, src) -> None:
+    """``dst.copy_(src)`` where ``dst`` may be a DTensor (a cache leaf):
+    ``src`` is laid out as ``dst`` first (a plain tensor counts as
+    replicated), then each rank copies its own block in place."""
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    dm = dst.device_mesh
+    if not is_dtensor(src):
+        src = distribute_tensor(src, dm, [Replicate()] * dm.ndim,
+                                src_data_rank=None)
+    if tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dm, dst.placements)
+    dst.to_local().copy_(src.to_local())
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward, gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def local_block(x, want):
+    """The local block of DTensor ``x`` laid out by the placements ``want``
+    (redistributed first), to enter a region that runs on each rank's
+    block with explicit collectives, as the reference's ``shard_map``.
+    Its gradient is taken, as ``shard_map`` takes it, as this rank's part
+    of a sum over the mesh axes ``want`` replicates."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    if tuple(x.placements) != tuple(want):
+        x = x.redistribute(x.device_mesh, want)
+    grad = [Partial() if isinstance(p, Replicate) else p for p in want]
+    return x.to_local(grad_placements=grad)
+
+
+def from_block(y, device_mesh, where):
+    """Leave a per-rank region: ``y`` (this rank's block) as a DTensor laid
+    out by the placements ``where``.  As ``shard_map`` does, the gradient
+    that reaches ``y`` is divided by the number of ranks that hold the same
+    block (the sizes of the axes ``where`` replicates), each of which
+    passes its share back through :func:`local_block`."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rep = math.prod(device_mesh.size(i) for i, p in enumerate(where)
+                    if isinstance(p, Replicate))
+    if rep > 1 and y.requires_grad:
+        y = _ScaleGrad.apply(y, 1.0 / rep)
+    return DTensor.from_local(y, device_mesh, list(where), run_check=False)
+
+
+def settle(x):
+    """``x`` with the partial sums of a DTensor reduced (its ``Partial``
+    mesh dimensions made ``Replicate``); anything else as it is.  A
+    partial sum met beside a sharded operand needs DTensor's Shard ->
+    Partial, which the card's torch 2.11 lacks."""
+    from torch.distributed.tensor import Replicate
+
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def block_index(device_mesh, dims) -> int:
+    """This rank's block of a dimension that the mesh dimensions ``dims``
+    shard (in mesh order, major to minor)."""
+    block = 0
+    for i in dims:
+        block = block * device_mesh.size(i) + device_mesh.get_local_rank(i)
+    return block

@@ -128,7 +128,7 @@ def _sublayer_full(p, x, sub, *, cfg, positions, causal, enc_out, policy):
         if sub.mixer == "rwkv6":
             h = rwkv_mod.rwkv_cm_full(p["ffn"], h)
         elif sub.ffn == "moe":
-            h, aux = moe_mod.moe_apply(p["ffn"], h, cfg=cfg)
+            h, aux = moe_mod.moe_apply(p["ffn"], h, cfg=cfg, policy=policy)
         else:
             h = glu_mlp(p["ffn"], h, cfg.act)
         x = x + _post(p, h, "norm2_post", cfg)
@@ -245,11 +245,13 @@ def init_stack_cache(cfg, batch: int, max_len: int, dtype, *, device):
     return {f"sub{i}": one(sub) for i, sub in enumerate(cfg.pattern)}
 
 
-def _sublayer_decode(p, x, cache, sub, *, cfg, index, moe_groups, enc_out):
+def _sublayer_decode(p, x, cache, sub, *, cfg, index, moe_groups, enc_out,
+                     policy):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if sub.mixer in ("attn", "attn_local"):
         h, _ = attn_mod.attention_decode(p["mixer"], h, cache, index,
-                                         cfg=cfg, window=_window(cfg, sub))
+                                         cfg=cfg, window=_window(cfg, sub),
+                                         policy=policy)
     elif sub.mixer == "mamba":
         h, _ = mamba_mod.mamba_decode(p["mixer"], h, cache, cfg=cfg)
     elif sub.mixer == "rwkv6":
@@ -260,7 +262,7 @@ def _sublayer_decode(p, x, cache, sub, *, cfg, index, moe_groups, enc_out):
     if "cross" in p:
         h = rms_norm(x, p["norm_cross"], cfg.norm_eps)
         h, _ = attn_mod.attention_decode(p["cross"], h, {}, index, cfg=cfg,
-                                         kv_src=enc_out)
+                                         kv_src=enc_out, policy=policy)
         x = x + h
 
     if "ffn" in p:
@@ -269,7 +271,8 @@ def _sublayer_decode(p, x, cache, sub, *, cfg, index, moe_groups, enc_out):
             h = rwkv_mod.rwkv_cm_decode(p["ffn"], h, cache)
         elif sub.ffn == "moe":
             # decode drops the aux loss, as the reference does
-            h, _ = moe_mod.moe_apply(p["ffn"], h, cfg=cfg, groups=moe_groups)
+            h, _ = moe_mod.moe_apply(p["ffn"], h, cfg=cfg, groups=moe_groups,
+                                     policy=policy)
         else:
             h = glu_mlp(p["ffn"], h, cfg.act)
         x = x + _post(p, h, "norm2_post", cfg)
@@ -278,17 +281,23 @@ def _sublayer_decode(p, x, cache, sub, *, cfg, index, moe_groups, enc_out):
 
 def stack_decode(stack_params, x: torch.Tensor, cache, index, *, cfg,
                  moe_per_row: bool = False,
-                 enc_out: torch.Tensor | None = None):
+                 enc_out: torch.Tensor | None = None,
+                 policy: ShardingPolicy = ShardingPolicy()):
     """One-token decode through the stack; ``index`` (B,).  With
     ``moe_per_row`` every row routes its MoE tokens as its own group (the
     serving engine's slots); otherwise the batch is one group.  ``enc_out``
     (B, S_enc, D): the encoder output the cross-attention blocks attend.
-    Updates ``cache`` in place and returns ``(x, cache)``."""
+    ``policy`` lays out the hidden state as ``hidden`` at the top of every
+    super-layer and is passed to every mixer and MoE block; on a mesh the
+    cache is a tree of DTensors laid out by it.  Updates ``cache`` in
+    place and returns ``(x, cache)``."""
     moe_groups = x.shape[0] if moe_per_row else 1
     for layer in range(cfg.num_super_layers):
+        x = policy.act(x, kind="hidden")
         for i, sub in enumerate(cfg.pattern):
             p = tree_util.tree_map(lambda t: t[layer], stack_params[f"sub{i}"])
             c = {k: t[layer] for k, t in cache[f"sub{i}"].items()}
             x = _sublayer_decode(p, x, c, sub, cfg=cfg, index=index,
-                                 moe_groups=moe_groups, enc_out=enc_out)
+                                 moe_groups=moe_groups, enc_out=enc_out,
+                                 policy=policy)
     return x, cache

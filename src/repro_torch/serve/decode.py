@@ -141,12 +141,39 @@ def make_tp_head(model, ctx: comm.CommContext | None = None):
 
 def greedy_step(model, ctx: comm.CommContext | None = None):
     """One-token cached greedy decode:
-    ``step(cache, tokens (B, 1)) -> (next tokens (B, 1), cache)``."""
+    ``step(cache, tokens (B, 1)) -> (next tokens (B, 1), cache)``.
+
+    A model on a mesh (built under a policy with one) takes no ``ctx``: it
+    runs its own head under the policy (:meth:`Model.decode_step`, the
+    logits laid out as ``logits``), each rank takes the argmax of its rows
+    over the whole vocabulary, and every rank returns all the rows' tokens
+    as a plain tensor."""
+    if getattr(model, "on_mesh", False):
+        if ctx is not None:
+            raise ValueError("a model on a mesh runs its own head; the "
+                             "tensor-parallel head takes a mesh=None model")
+        return _mesh_greedy_step(model)
     head = make_tp_head(model, ctx)
 
     def step(cache, tokens):
         hidden, cache = model.decode_hidden(cache, tokens)
         return head(hidden), cache
+
+    return step
+
+
+def _mesh_greedy_step(model):
+    from ..models.sharding import from_block
+
+    policy = model.policy
+
+    def step(cache, tokens):
+        logits, cache = model.decode_step(cache, tokens)
+        with policy.scope():
+            rows = policy.constrain(logits[:, -1], (policy.dp, None))
+            tok = torch.argmax(rows.to_local(), dim=-1)[:, None]
+            tok = from_block(tok, rows.device_mesh, rows.placements)
+            return tok.full_tensor(), cache
 
     return step
 

@@ -75,6 +75,10 @@ class ServeEngine:
         boundaries (default 1: per-token boundaries).
       ctx: serving group; with more than one rank the head is
         tensor-parallel.  ``torch.distributed`` must span the group.
+      mesh: a :class:`~repro_torch.launch.mesh.Mesh` whose DP axes are the
+        serving group, as the reference's: without a ``ctx`` the group is
+        ``CommContext(Topology.from_mesh(mesh))`` (``model`` is then a
+        ``mesh=None`` model on every rank of a world of the mesh's size).
       max_queue: admission-control bound (None = unbounded).
       extras_template: the shapes and dtypes (any tensors, ``meta`` ones
         will do) of the per-request extras of an encoder-decoder arch,
@@ -92,6 +96,7 @@ class ServeEngine:
         buckets: PromptBuckets | None = None,
         eos_id: int | None = None,
         slice_len: int = 1,
+        mesh=None,
         ctx: comm.CommContext | None = None,
         max_queue: int | None = None,
         extras_template: dict | None = None,
@@ -110,6 +115,8 @@ class ServeEngine:
         self.scheduler = Scheduler(
             num_slots, max_queue=max_queue, buckets=buckets, eos_id=eos_id
         )
+        if mesh is not None and ctx is None:
+            ctx = comm.CommContext(comm.Topology.from_mesh(mesh))
         self.ctx = ctx
         self.group = ctx.topology.group if ctx is not None else 1
         geometry = self.scheduler.shard_geometry(self.group)

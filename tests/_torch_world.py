@@ -54,16 +54,29 @@ of ``mode`` and writes its results to ``<out_dir>/rank<rank>.npz``:
   on a 2x2 ``("pod", "data")`` mesh (``nap`` mean: plain, int8, int4);
   ``Topology.from_mesh`` with a ``model`` axis (one DP grid per
   model index, ``psum`` and the point-to-point ``rd``); and the other
-  families' mixers on the 2x2 mesh against ``mesh=None``
+  families' mixers (MoE too) on the 2x2 mesh against ``mesh=None``
   (:func:`mesh_families`).
+
+* ``mesh_serve`` — serving and MoE on a mesh: reduced minicpm-2b from
+  ``<out_dir>/params0.npz`` decoded on a 2x2 ``("data", "model")`` mesh
+  under the train layout and ``serve2d`` (prefill, decode logits, greedy
+  tokens, the cache's values and local shard shapes); the other families
+  decoded on the mesh and with ``mesh=None``; ``moe_apply`` of reduced
+  deepseek-moe on 2x2 / 4x1 (train) and 2x2 (``serve2d``) at capacity
+  factors 1.0 and 4.0 with ``mesh=None`` beside them, and
+  ``build_training(mesh=)`` on it; ``all_to_all`` with its gradient; and
+  ``ServeEngine(mesh=)`` / ``serve_batch(mesh=)`` on 2x2 ``("pod",
+  "data")``.
 
 ``jax_train`` / ``jax_rs_ag`` / ``jax_serve`` / ``jax_sharded`` (one
 process, 4 virtual CPU devices) run the JAX package's side of ``train`` /
-``rs_ag`` / ``serve`` (2x2) / ``sharded`` and write
+``rs_ag`` / ``serve`` (2x2) / ``sharded`` (and ``jax_mesh_serve`` the
+reference's side of ``mesh_serve``) and write
 ``<out_dir>/jax.npz``.  ``jax_specs`` (512 virtual CPU devices) writes
 the reference's ``input_specs`` / ``state_specs`` of every dry-run cell on
-both production meshes to ``<out_dir>/jax_specs.json``: each leaf's
-shape, dtype and spec.  The tests start a world with :func:`spawn_world`.
+both production meshes (and, for every prefill and decode cell, with
+``serve2d=True``) to ``<out_dir>/jax_specs.json``: each leaf's shape,
+dtype and spec.  The tests start a world with :func:`spawn_world`.
 """
 
 from __future__ import annotations
@@ -914,13 +927,17 @@ def shard_opt():
     return OptimizerConfig(lr=1e-3, schedule="constant", warmup_steps=1)
 
 
-def _full(t):
-    import torch
+def _full_tensor(t):
+    """The whole value of a DTensor (a plain tensor as it is)."""
     from torch.distributed.tensor import DTensor
 
-    if isinstance(t, DTensor):
-        t = t.full_tensor()
-    return t.detach().to(torch.float32).numpy().copy()
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _full(t):
+    import torch
+
+    return _full_tensor(t).detach().to(torch.float32).numpy().copy()
 
 
 def _train_cfg(steps, every=0):
@@ -1093,8 +1110,10 @@ def _rwkv_group_norm_exact(x, scale, H, hd, eps=1e-5):
 
 def mesh_family_configs():
     """Reduced configs whose mixers the mesh runs: GQA with a window and
-    softcaps (gemma2), MQA (granite), QKV bias (qwen2), RWKV6, and jamba's
-    Mamba + attention super-layer with dense FFNs (MoE refuses a mesh)."""
+    softcaps (gemma2), MQA (granite), QKV bias (qwen2), RWKV6, jamba's
+    Mamba + attention super-layer with dense FFNs and with its experts,
+    and deepseek-moe; the MoE ones at a capacity factor where nothing
+    drops (the expert-parallel route's capacities are per DP shard)."""
     import dataclasses
 
     from repro_torch.configs import ARCHS, reduced
@@ -1106,13 +1125,15 @@ def mesh_family_configs():
         jamba, moe=None, pattern=tuple(
             dataclasses.replace(s, ffn="dense") if s.ffn == "moe" else s
             for s in jamba.pattern))
+    cfgs["jamba-moe"] = with_capacity(jamba, 4.0)
+    cfgs["deepseek-moe-16b"] = with_capacity(
+        reduced(ARCHS["deepseek-moe-16b"]), 4.0)
     return cfgs
 
 
 def mesh_families(mesh):
     """Loss and full gradients of each :func:`mesh_family_configs` entry on
-    ``mesh`` and with ``mesh=None`` (same seeded parameters and batch), and
-    whether an MoE model refuses the mesh."""
+    ``mesh`` and with ``mesh=None`` (same seeded parameters and batch)."""
     import torch
 
     from repro_torch.configs import ARCHS, reduced
@@ -1142,18 +1163,6 @@ def mesh_families(mesh):
                     out[f"family/{name}/{tag}/grad{i}"] = _full(g)
     finally:
         trwkv._group_norm = norm
-    cfg = reduced(ARCHS["deepseek-moe-16b"])
-    policy = make_policy(cfg, mesh, device="cpu")
-    model = build_model(cfg, generator=torch.Generator().manual_seed(0),
-                        device="cpu", policy=policy)
-    data = SyntheticLM(cfg.vocab_size, SHARD_SEQ, SHARD_BATCH,
-                       seed=SHARD_SEED, mesh=mesh, batch_axes=("data",))
-    try:
-        model(data.batch(0, "cpu"))
-        refused = False
-    except NotImplementedError:
-        refused = True
-    out["family/moe_refused"] = np.asarray(refused)
     return out
 
 
@@ -1241,6 +1250,392 @@ def run_jax_sharded(out_dir):
     np.savez(Path(out_dir) / "jax.npz", **out)
 
 
+# ---------------------------------------------------------------------------
+# serving and MoE on a mesh (modes mesh_serve / jax_mesh_serve)
+# ---------------------------------------------------------------------------
+
+MS_MESH = ((2, 2), ("data", "model"))
+MS_MODES = ("train", "serve2d")
+MS_B, MS_P, MS_STEPS, MS_LEN, MS_FRAMES = 4, 6, 6, 16, 12
+#: the families decoded on the mesh against mesh=None (jamba's MoE at a
+#: capacity factor with no drops, so its prefill matches too)
+MS_FAMILIES = ("gemma2-27b", "granite-20b", "jamba-1.5-large-398b",
+               "rwkv6-1.6b", "whisper-tiny")
+#: MoE cases: (name, mesh shape on ("data", "model"), policy mode)
+MOE_MESHES = (("2x2", (2, 2), "train"), ("4x1", (4, 1), "train"),
+              ("2x2_serve2d", (2, 2), "serve2d"))
+MOE_FACTORS = (1.0, 4.0)
+MOE_B, MOE_S = 8, 16
+A2A_ROWS = 3
+
+
+def ms_prompts(vocab: int) -> np.ndarray:
+    return np.random.default_rng(5).integers(0, vocab, (MS_B, MS_P))
+
+
+def ms_frames(d_model: int) -> np.ndarray:
+    return np.random.default_rng(6).standard_normal(
+        (MS_B, MS_FRAMES, d_model)).astype(np.float32)
+
+
+def with_capacity(cfg, factor: float):
+    import dataclasses
+
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+
+
+def moe_inputs(cfg) -> dict:
+    """Seeded MoE parameters (the reference's ``init_moe`` tree) and
+    inputs for reduced deepseek-moe: ``x`` (B, S, D) and ``proj`` (the
+    loss is ``sum(y * proj) + aux``), and a decode step's ``x_dec`` (B, 1,
+    D)."""
+    m, D = cfg.moe, cfg.d_model
+    E, F, Fs = m.num_experts, m.d_expert, m.num_shared_experts * m.d_expert
+    rng = np.random.default_rng(21)
+    n = lambda *shape, s=1.0: (rng.standard_normal(shape) * s).astype(  # noqa
+        np.float32)
+    return {
+        "params": {
+            "w_router": n(D, E, s=D ** -0.5),
+            "we_gate": n(E, D, F, s=D ** -0.5),
+            "we_up": n(E, D, F, s=D ** -0.5),
+            "we_down": n(E, F, D, s=F ** -0.5),
+            "shared": {"w_gate": n(D, Fs, s=D ** -0.5),
+                       "w_up": n(D, Fs, s=D ** -0.5),
+                       "w_down": n(Fs, D, s=Fs ** -0.5)},
+        },
+        "x": n(MOE_B, MOE_S, D), "proj": n(MOE_B, MOE_S, D),
+        "x_dec": n(MOE_B, 1, D),
+    }
+
+
+def a2a_inputs(world: int):
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((world, world, A2A_ROWS)).astype(np.float32)
+    w = rng.standard_normal((world, world, A2A_ROWS)).astype(np.float32)
+    return x, w
+
+
+def _leaf_paths(tree, prefix=""):
+    """``{path: leaf}`` of a nested dict, keys sorted."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_leaf_paths(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _ms_decode(model, prompts, frames=None):
+    """Prefill logits, the teacher-forced decode logits of every prompt
+    position, then MS_STEPS greedy tokens through ``make_serve_step``; the
+    final cache's leaves (whole) and this rank's shard shape of each."""
+    import torch
+
+    from repro_torch.launch import make_prefill_step, make_serve_step
+
+    batch = {"tokens": torch.from_numpy(prompts)}
+    if frames is not None:
+        batch["frames"] = torch.from_numpy(frames)
+    out = {"prefill": _full(make_prefill_step(model, device="cpu")(batch))}
+    cache = model.init_decode(MS_B, MS_LEN,
+                              batch=batch if frames is not None else None)
+    logits = []
+    for t in range(MS_P):
+        lg, cache = model.decode_step(cache, batch["tokens"][:, t:t + 1])
+        logits.append(_full(lg))
+    out["logits"] = np.stack(logits)
+    tok = torch.from_numpy(np.argmax(logits[-1][:, -1], axis=-1)[:, None])
+    step = make_serve_step(model, device="cpu")
+    toks = [tok]
+    for _ in range(MS_STEPS):
+        tok, cache = step(cache, tok)
+        toks.append(tok)
+    out["tokens"] = np.concatenate([t.numpy() for t in toks], axis=1)
+    for path, t in _leaf_paths(cache).items():
+        out[f"cache/{path}"] = _full(t)
+        local = t.to_local() if hasattr(t, "to_local") else t
+        out[f"cshape/{path}"] = np.asarray(local.shape)
+    return out
+
+
+def _ms_moe(policy, cfg, inp, *, grads: bool):
+    """``moe_apply`` under ``policy`` on the seeded inputs: the loss, ``y``
+    and (with ``grads``) the gradients of ``x`` and of every parameter,
+    each parameter's gradient laid out as the parameter; without, the
+    forward and one decode step's ``y``."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.models import moe as tmoe
+
+    params = tree.tree_map(torch.from_numpy, inp["params"])
+    params = policy.shard_params(params)
+    leaves = [p.requires_grad_() for p in tree.leaves(params)]
+    out = {}
+    for name in ("x", "x_dec") if not grads else ("x",):
+        x = torch.from_numpy(inp[name])
+        if policy.mesh is not None:
+            x = policy.constrain(x, (policy.dp, None, None)).detach()
+        x.requires_grad_(grads)
+        with policy.scope():
+            y, aux = tmoe.moe_apply(params, x, cfg=cfg, policy=policy)
+            out[f"{name}/y"] = _full(y)
+            if name == "x_dec":
+                continue
+            loss = (y * torch.from_numpy(inp["proj"])).sum() + aux
+            out["loss"] = _full(loss)
+            if not grads:
+                continue
+            g = torch.autograd.grad(loss, [x] + leaves)
+        out["grad/x"] = _full(g[0])
+        for i, (gi, p) in enumerate(zip(g[1:], leaves)):
+            if policy.mesh is not None:
+                assert tuple(gi.placements) == tuple(p.placements) or (
+                    tuple(policy.constrain(gi, ()).placements)), i
+            out[f"grad/{i}"] = _full(gi)
+    return out
+
+
+def run_mesh_serve(rank, world, out_dir):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.configs import ARCHS, MINICPM_2B, reduced
+    from repro_torch.core.collectives import all_to_all
+    from repro_torch.launch import build_training, make_mesh, make_policy
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build_model, init_params, params_from_jax
+    from repro_torch.models import rwkv as trwkv
+    from repro_torch.serve import PromptBuckets, ServeEngine
+
+    out_dir = Path(out_dir)
+    out = {}
+    mesh = make_mesh(*MS_MESH)
+
+    # reduced minicpm from the reference's parameters, both layouts
+    cfg = reduced(MINICPM_2B)
+    with np.load(out_dir / "params0.npz") as z:
+        flat0 = [z[f"leaf{i}"] for i in range(len(z.files))]
+    _, td = tree.flatten(init_params(cfg, device="meta"))
+    params = params_from_jax(tree.unflatten(td, flat0), cfg, "cpu")
+    prompts = ms_prompts(cfg.vocab_size)
+    for mode in MS_MODES:
+        policy = make_policy(cfg, mesh, mode=mode, device="cpu")
+        model = build_model(cfg, params, policy=policy, device="cpu")
+        for k, v in _ms_decode(model, prompts).items():
+            out[f"minicpm/{mode}/{k}"] = v
+
+    # the other families on the mesh against mesh=None
+    norm = trwkv._group_norm
+    trwkv._group_norm = _rwkv_group_norm_exact
+    try:
+        for arch in MS_FAMILIES:
+            fcfg = reduced(ARCHS[arch])
+            if fcfg.moe is not None:
+                fcfg = with_capacity(fcfg, 4.0)
+            frames = ms_frames(fcfg.d_model) if fcfg.encoder_layers else None
+            for mode in ("plain",) + MS_MODES:
+                m = None if mode == "plain" else mesh
+                policy = make_policy(fcfg, m, mode=mode if m else "train",
+                                     device="cpu")
+                model = build_model(fcfg, generator=torch.Generator()
+                                    .manual_seed(0), device="cpu",
+                                    policy=policy)
+                res = _ms_decode(model, ms_prompts(fcfg.vocab_size), frames)
+                for k, v in res.items():
+                    out[f"family/{arch}/{mode}/{k}"] = v
+    finally:
+        trwkv._group_norm = norm
+
+    # MoE on the mesh: reduced deepseek-moe
+    base = reduced(ARCHS["deepseek-moe-16b"])
+    inp = moe_inputs(base)
+    for cf in MOE_FACTORS:
+        mcfg = with_capacity(base, cf)
+        res = _ms_moe(make_policy(mcfg, None), mcfg, inp, grads=True)
+        for k, v in res.items():
+            out[f"moe/{cf}/plain/{k}"] = v
+        for name, shape, mode in MOE_MESHES:
+            policy = make_policy(mcfg, make_mesh(shape, MS_MESH[1]),
+                                 mode=mode, device="cpu")
+            res = _ms_moe(policy, mcfg, inp, grads=mode == "train")
+            for k, v in res.items():
+                out[f"moe/{cf}/{name}/{k}"] = v
+    # build_training on the mesh against mesh=None (no drops)
+    mcfg = with_capacity(base, 4.0)
+    for tag, m in (("plain", None), ("mesh", mesh)):
+        lp = build_training(mcfg, _train_cfg(2), mesh=m,
+                            ckpt_dir=out_dir / f"moe_{tag}{rank}",
+                            device="cpu")
+        lp.run(2)
+        out[f"moe_train/{tag}"] = np.asarray(
+            [x["loss"] for x in lp.metrics_log])
+
+    # all_to_all with its backward over the world
+    xa, wa = a2a_inputs(world)
+    x = torch.from_numpy(xa[rank]).requires_grad_()
+    y = all_to_all(x, dist.group.WORLD)
+    (g,) = torch.autograd.grad((y * torch.from_numpy(wa[rank])).sum(), x)
+    out["a2a/y"], out["a2a/grad"] = y.detach().numpy(), g.numpy()
+
+    # serve_batch(mesh=) and ServeEngine(mesh=) on ("pod", "data")
+    smodel = build_model(cfg, params, device="cpu")
+    pmesh = make_mesh(SERVE_GRIDS[4], ("pod", "data"))
+
+    def engine():
+        return ServeEngine(smodel, num_slots=SERVE_SLOTS,
+                           max_len=SERVE_MAX_LEN,
+                           buckets=PromptBuckets(SERVE_BUCKETS), mesh=pmesh,
+                           device="cpu")
+
+    for i, (s_, c) in enumerate(zip(serve_serial(engine()),
+                                    serve_streams(engine()))):
+        out[f"engine/serial{i}"] = np.asarray(s_)
+        out[f"engine/cont{i}"] = np.asarray(c)
+    out["serve_batch"] = serve_batch(
+        smodel, torch.from_numpy(ms_prompts(cfg.vocab_size)), gen_len=6,
+        mesh=pmesh, device="cpu").numpy()
+    return out
+
+
+def run_jax_mesh_serve(out_dir):
+    os.environ["XLA_FLAGS"] = (
+        "--xla_force_host_platform_device_count=4 "
+        + os.environ.get("XLA_FLAGS", "")
+    )
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro import compat
+    from repro.configs.archs import DEEPSEEK_MOE_16B, MINICPM_2B, reduced
+    from repro.launch import steps as jsteps
+    from repro.launch.mesh import make_mesh
+    from repro.launch.serve import serve_batch
+    from repro.models import build_model
+    from repro.models import moe as jmoe
+    from repro.serve import PromptBuckets, ServeEngine
+
+    out = {}
+    cfg = reduced(MINICPM_2B)
+    mesh = make_mesh(*MS_MESH)
+    params0 = jax.jit(build_model(cfg).init)(jax.random.PRNGKey(0))
+    for i, p in enumerate(jax.tree.leaves(params0)):
+        out[f"init{i}"] = np.array(p, copy=True)
+    prompts = jnp.asarray(ms_prompts(cfg.vocab_size), jnp.int32)
+    devs = list(mesh.devices.flat)
+    for mode in MS_MODES:
+        policy = jsteps.make_policy(cfg, mesh, mode=mode)
+        model = build_model(cfg, policy)
+        params = policy.shard_params(params0)
+        key = f"minicpm/{mode}"
+        out[f"{key}/prefill"] = np.asarray(jax.jit(
+            jsteps.make_prefill_step(model))(params, {"tokens": prompts}))
+        cache = model.init_decode(params, MS_B, MS_LEN)
+        sds = jsteps._attach_cache_shardings(
+            jax.eval_shape(lambda: cache), policy)
+        cache = jax.device_put(cache, jax.tree.map(lambda s: s.sharding,
+                                                   sds))
+        flat, _ = jax.tree_util.tree_flatten_with_path(cache)
+        for path, leaf in flat:
+            name = "/".join(str(k.key) for k in path)
+            by_dev = {s.device: s.data.shape for s in leaf.addressable_shards}
+            out[f"{key}/cshape/{name}"] = np.asarray(
+                [by_dev[d] for d in devs])
+        dstep = jax.jit(model.decode_step)
+        sstep = jax.jit(jsteps.make_serve_step(model))
+        logits = []
+        for t in range(MS_P):
+            lg, cache = dstep(params, cache, prompts[:, t:t + 1])
+            logits.append(np.asarray(lg))
+        out[f"{key}/logits"] = np.stack(logits)
+        tok = jnp.argmax(logits[-1][:, -1], axis=-1)[:, None].astype(
+            jnp.int32)
+        toks = [np.asarray(tok)]
+        for _ in range(MS_STEPS):
+            tok, cache = sstep(params, cache, tok)
+            toks.append(np.asarray(tok))
+        out[f"{key}/tokens"] = np.concatenate(toks, axis=1)
+        for path, leaf in flat:
+            name = "/".join(str(k.key) for k in path)
+            out[f"{key}/cache/{name}"] = np.asarray(
+                jax.tree_util.tree_flatten_with_path(cache)[0][
+                    [p for p, _ in flat].index(path)][1])
+
+    # MoE under the same policies
+    base = reduced(DEEPSEEK_MOE_16B)
+    inp = moe_inputs(base)
+    for cf in MOE_FACTORS:
+        mcfg = with_capacity(base, cf)
+        for name, shape, mode in MOE_MESHES:
+            mmesh = make_mesh(shape, MS_MESH[1])
+            policy = jsteps.make_policy(mcfg, mmesh, mode=mode)
+            params = policy.shard_params(jax.tree.map(jnp.asarray,
+                                                      inp["params"]))
+            put = lambda a: jax.device_put(  # noqa: E731
+                jnp.asarray(a), NamedSharding(mmesh, P(policy.dp)))
+            proj = jnp.asarray(inp["proj"])
+
+            def loss(p, x, policy=policy, mcfg=mcfg):
+                y, aux = jmoe.moe_apply(p, x, cfg=mcfg, policy=policy)
+                return jnp.sum(y * proj) + aux, y
+
+            key = f"moe/{cf}/{name}"
+            if mode == "train":
+                (lv, y), (gp, gx) = jax.jit(jax.value_and_grad(
+                    loss, argnums=(0, 1), has_aux=True))(params,
+                                                         put(inp["x"]))
+                out[f"{key}/grad/x"] = np.asarray(gx)
+                for i, g in enumerate(jax.tree.leaves(gp)):
+                    out[f"{key}/grad/{i}"] = np.asarray(g)
+            else:
+                lv, y = jax.jit(loss)(params, put(inp["x"]))
+                yd, _ = jax.jit(lambda p, x, policy=policy, mcfg=mcfg:
+                                jmoe.moe_apply(p, x, cfg=mcfg,
+                                               policy=policy))(
+                    params, put(inp["x_dec"]))
+                out[f"{key}/x_dec/y"] = np.asarray(yd)
+            out[f"{key}/loss"] = np.asarray(lv)
+            out[f"{key}/x/y"] = np.asarray(y)
+
+    # lax.all_to_all on 4 devices
+    xa, wa = a2a_inputs(4)
+    amesh = make_mesh((4,), ("i",))
+
+    def a2a(x):
+        return compat.shard_map(
+            lambda t: jax.lax.all_to_all(t[0], "i", 0, 0, tiled=False)[None],
+            mesh=amesh, in_specs=P("i"), out_specs=P("i"),
+            check_vma=False)(x)
+
+    out["a2a/y"] = np.asarray(jax.jit(a2a)(jnp.asarray(xa)))
+    out["a2a/grad"] = np.asarray(jax.jit(jax.grad(
+        lambda x: jnp.sum(a2a(x) * jnp.asarray(wa))))(jnp.asarray(xa)))
+
+    # the meshed engine and serve_batch on ("pod", "data")
+    model = build_model(cfg)
+    pmesh = make_mesh(SERVE_GRIDS[4], ("pod", "data"))
+
+    def engine():
+        return ServeEngine(model, params0, num_slots=SERVE_SLOTS,
+                           max_len=SERVE_MAX_LEN,
+                           buckets=PromptBuckets(SERVE_BUCKETS), mesh=pmesh)
+
+    for i, (s_, c) in enumerate(zip(serve_serial(engine()),
+                                    serve_streams(engine()))):
+        out[f"engine/serial{i}"] = np.asarray(s_)
+        out[f"engine/cont{i}"] = np.asarray(c)
+    out["serve_batch"] = np.asarray(serve_batch(
+        model, params0, prompts, gen_len=6, mesh=pmesh))
+    np.savez(Path(out_dir) / "jax.npz", **out)
+
+
 def spec_entry(entry):
     """A spec entry as JSON: None, an axis name, or a list of names (a
     one-axis tuple written as the name)."""
@@ -1288,6 +1683,17 @@ def run_jax_specs(out_dir):
             if "cache" in state:
                 cell["cache"] = paths(state["cache"])
             out[f"{arch}/{shape}/{int(multi_pod)}"] = cell
+            if steps.SHAPES[shape].kind == "train":
+                continue
+            batch = steps.input_specs(arch, shape, mesh, serve2d=True)
+            _, _, state, _ = steps.state_specs(arch, shape, mesh,
+                                               serve2d=True)
+            cell = {"batch": {k: leaf(v) for k, v in batch.items()},
+                    "params": [leaf(x) for x in
+                               jax.tree.leaves(state["params"])]}
+            if "cache" in state:
+                cell["cache"] = paths(state["cache"])
+            out[f"{arch}/{shape}/{int(multi_pod)}/serve2d"] = cell
     (Path(out_dir) / "jax_specs.json").write_text(json.dumps(out))
 
 
@@ -1331,7 +1737,8 @@ def main():
     if mode.startswith("jax_"):
         {"jax_train": run_jax_train, "jax_rs_ag": run_jax_rs_ag,
          "jax_serve": run_jax_serve, "jax_sharded": run_jax_sharded,
-         "jax_specs": run_jax_specs}[mode](sys.argv[2])
+         "jax_specs": run_jax_specs,
+         "jax_mesh_serve": run_jax_mesh_serve}[mode](sys.argv[2])
         return
     rank, world, store, out_dir = (
         int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
@@ -1360,6 +1767,8 @@ def main():
             out = run_dp_checks(rank, world, out_dir)
         elif mode == "sharded":
             out = run_sharded(rank, world, out_dir)
+        elif mode == "mesh_serve":
+            out = run_mesh_serve(rank, world, out_dir)
         else:
             raise SystemExit(f"unknown mode {mode!r}")
         dist.barrier()

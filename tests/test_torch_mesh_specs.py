@@ -3,6 +3,12 @@ for every cell of the reference's dry run (``repro.launch.dryrun.cells``)
 on both production meshes (16 x 16 ``("data", "model")`` and 2 x 16 x 16
 ``("pod", "data", "model")``), at full width.
 
+Every prefill and decode cell is compared again in the serving layout
+(``input_specs`` / ``state_specs`` with ``serve2d=True``): the batch is
+replicated, the weights and experts go over ``model x data`` jointly and
+the cache's positions over the joint axes; the port's per-row ``index`` /
+``pos`` are replicated there, as the batch is.
+
 The reference needs a mesh of 512 devices: it runs in one subprocess with
 512 virtual CPU devices (``tests/_torch_world.py`` mode ``jax_specs``) and
 writes each leaf's shape, dtype and ``NamedSharding.spec``.  The port's
@@ -26,6 +32,7 @@ import pytest
 
 from repro.launch.dryrun import cells
 from repro_torch import tree
+from repro_torch.configs import SHAPES
 from repro_torch.launch import input_specs, state_specs
 from repro_torch.launch.mesh import dp_axes, make_production_mesh
 
@@ -33,6 +40,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _torch_world as tw  # noqa: E402
 
 CELLS = list(cells())
+SERVE_CELLS = [(a, s) for a, s in CELLS if SHAPES[s].kind != "train"]
 
 
 @pytest.fixture(scope="module")
@@ -128,3 +136,47 @@ def test_spec_leaves_have_no_storage():
     leaves = tree.leaves(state["params"]) + state["opt"].mu
     assert all(t.is_meta and hasattr(t, "spec") for t in leaves)
     assert state["opt"].step == 0
+
+
+@pytest.mark.parametrize("arch,shape", SERVE_CELLS,
+                         ids=[f"{a}-{s}" for a, s in SERVE_CELLS])
+def test_serve2d_specs_match_reference(reference, arch, shape):
+    for multi_pod in (False, True):
+        want = reference[f"{arch}/{shape}/{int(multi_pod)}/serve2d"]
+        mesh = make_production_mesh(multi_pod=multi_pod)
+
+        batch = input_specs(arch, shape, mesh, serve2d=True)
+        assert set(batch) == set(want["batch"])
+        for k, t in batch.items():
+            assert _leaf(t) == _norm(want["batch"][k]), (k, multi_pod)
+            assert all(e is None for e in t.spec)
+
+        _, policy, state, _ = state_specs(arch, shape, mesh, serve2d=True)
+        assert policy.mode == "serve2d" and policy.dp_axes == ()
+        got = [_leaf(t) for t in tree.leaves(state["params"])]
+        assert got == [_norm(w) for w in want["params"]], multi_pod
+        if "cache" not in want:
+            assert "cache" not in state
+            continue
+        cache = state["cache"]
+        wc = want["cache"]
+        g_index = _leaf(cache["index"])
+        assert wc["index"]["shape"] == [] and g_index["spec"] == [None]
+        B = g_index["shape"][0]
+        if "enc_out" in wc:
+            assert _leaf(cache["enc_out"]) == _norm(wc["enc_out"])
+        joint = 0
+        for sub, leaves in cache["stack"].items():
+            for name, t in leaves.items():
+                w = _norm(wc[f"stack/{sub}/{name}"])
+                g = _leaf(t)
+                if name == "pos":  # one ring position row per batch row
+                    n, size = w["shape"]
+                    assert g == {"shape": [n, B, size], "dtype": "int32",
+                                 "spec": [None, None, None]}
+                else:
+                    assert g == w, (sub, name, multi_pod)
+                    joint += any(isinstance(e, list) and e[0] == "model"
+                                 for e in g["spec"])
+        if any("k" in leaves for leaves in cache["stack"].values()):
+            assert joint, (arch, shape)  # KV positions over the joint axes
