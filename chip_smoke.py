@@ -201,6 +201,24 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    bucket of the plan; the result bitwise equal to the same sync on the
    plain transport and to ``sync_with_context`` on the local tensors.
 
+18. ``mesh_serve``: serving and MoE on the (1, 1) mesh at world size 1
+   (``phase_mesh_serve``): minicpm-2b-8l prefill, decode and greedy tokens
+   bitwise equal across ``mesh=None``, the train layout and ``serve2d``;
+   deepseek-moe-16b-2l training and ``serve2d`` decode bitwise equal to
+   ``mesh=None``, and its expert-parallel route at one rank.
+19. ``dryrun``: the dry run and the op counter (``phase_dryrun``): three
+   cells of ``repro_torch.launch.dryrun`` (whisper-tiny train_4k on 16 x
+   16, minicpm-2b decode_32k in ``serve2d``, deepseek-moe-16b train_4k on
+   2 x 16 x 16), each traced on ``meta`` in its own process and fake world
+   on the card's torch (each record ``ok``; roofline terms printed);
+   minicpm-2b-4l's train step (8 x 512, microbatches of 2) counted on the
+   card and on ``meta`` (equal counts; the counted loss bitwise equal to
+   an uncounted step's), its roofline with the H100's constants beside
+   its measured ms and device-busy ms; phase ``train``'s int4+EF DP step
+   counted on the kernel and plain routes (equal; a launch of each
+   transport kernel per compressed bucket at one rank; the wire lint
+   clean).
+
 Then a line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits non-zero
 without one, or without the repository's ``src/`` beside this file.
@@ -3003,6 +3021,274 @@ def phase_mesh_serve(smi, device="cuda", cfg=MINICPM_2B_8L,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the dry run and the op counter (phase dryrun)
+# ---------------------------------------------------------------------------
+
+# (arch, shape, multi-pod, --opts): each traced on meta in its own process
+# and fake world of 256 / 512 ranks (repro_torch.launch.dryrun)
+DRYRUN_CELLS = (("whisper-tiny", "train_4k", False, ""),
+                ("minicpm-2b", "decode_32k", False, "serve2d=1"),
+                ("deepseek-moe-16b", "train_4k", True, ""))
+# the counted train step: phase mesh's (8 x 512 in microbatches of 2)
+DRYRUN_COUNT = dict(batch=8, seq=512, microbatch=2, steps=3)
+
+
+def _dryrun_start() -> list:
+    """The dry run's cells, one ``python -m repro_torch.launch.dryrun``
+    process each (no card: ``CUDA_VISIBLE_DEVICES`` empty), all at once."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, multi, opts in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--tag", "chip", "--force"]
+        cmd += ["--multi-pod"] if multi else []
+        cmd += ["--opts", opts] if opts else []
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def _dryrun_finish(procs) -> list:
+    """Each cell's record; fails if a process fails or a record is not
+    ``ok``.  Every process is ended on the way out."""
+    recs = []
+    try:
+        for (arch, shape, multi, opts), p in zip(DRYRUN_CELLS, procs):
+            out, err = p.communicate(timeout=600)
+            name = f"{arch} {shape} {'pod2x16x16' if multi else 'pod16x16'}"
+            try:
+                rec = json.loads(out[out.index("{"):])
+            except ValueError:
+                raise AssertionError(f"dry run {name}: no record "
+                                     f"(rc {p.returncode}):\n{err[-3000:]}")
+            if p.returncode or not rec.get("ok"):
+                raise AssertionError(f"dry run {name} failed: "
+                                     f"{rec.get('error')}\n"
+                                     f"{rec.get('traceback', err[-3000:])}")
+            roof = rec["roofline"]
+            recs.append({"cell": name, "opts": opts, "ok": rec["ok"],
+                         "n_micro": rec.get("n_micro"),
+                         "trace_s": rec["trace_s"],
+                         **{k: roof[k] for k in (
+                             "compute_s", "memory_s", "collective_s",
+                             "dominant", "memory_kernel_s",
+                             "flops_per_chip", "bytes_per_chip",
+                             "collective_bytes_per_chip",
+                             "model_flops_per_chip")},
+                         "memory": rec["memory"]})
+    finally:
+        _stop(procs)
+    return recs
+
+
+def _stop(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _count_model(cfg, device, sizes):
+    """The step ``build_training``'s loop runs (``make_train_step`` at
+    n_micro batch / microbatch, mesh=None) on a fresh model from the
+    seed, with its state and first batch; on ``meta`` shapes only."""
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import Model, build_model, init_params
+    from repro_torch.optim import adamw_init
+
+    if device == "meta":
+        model = Model(cfg, init_params(cfg, device="meta"))
+    else:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        model = build_model(cfg, generator=gen, device=device)
+    step = make_train_step(model, OPT,
+                           n_micro=sizes["batch"] // sizes["microbatch"],
+                           device=device)
+    data = SyntheticLM(cfg.vocab_size, sizes["seq"], sizes["batch"],
+                       seed=SEED)
+    batch = data.batch(0, "cpu")
+    batch = {k: (torch.empty_like(v, device="meta") if device == "meta"
+                 else v.to(device)) for k, v in batch.items()}
+    return step, {"model": model, "opt": adamw_init(model.params())}, batch
+
+
+def _stats_row(st) -> dict:
+    return {"flops": st.flops, "bytes": st.memory_bytes,
+            "collective_bytes": st.collective_bytes,
+            "collectives": st.collectives, "dots": st.dots,
+            "flops_by_dtype": st.flops_by_dtype,
+            "kernel_launches": st.kernel_launches}
+
+
+def _dp_route_count(cfg, route: str, device) -> tuple:
+    """One traced int4+EF step of phase train's DP step (8 x 512, world
+    size 1) on ``route`` (``auto``: the CUDA kernels; ``plain``):
+    ``(stats, trace, buckets, kernel counters, loss)``."""
+    from repro_torch.launch.trace_analysis import analyze_trace, trace_call
+
+    policy = CommPolicy(algorithm="nap", mean=True, compress_bits=4,
+                        error_feedback=True, transport_impl=route)
+    step = make_dp_train_step(cfg, OPT, mesh_topology(1, 1), policy,
+                              device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    state = init_train_state(cfg, OPT, policy, generator=gen, device=device)
+    batch = SyntheticLM(cfg.vocab_size, SEQ, BATCH, seed=SEED).batch(
+        0, device)
+    transport.reset_launch_counts()
+    (state, m), trace = trace_call(step, state, batch)
+    torch.cuda.synchronize()
+    launches = dict(transport.LAUNCHES)
+    loss = float(m["loss"])
+    del state
+    _free()
+    return analyze_trace(trace), trace, step.plan.num_buckets, launches, loss
+
+
+def phase_dryrun(smi, cfg=MINICPM_2B_4L, device="cuda",
+                 sizes=DRYRUN_COUNT) -> dict:
+    """The dry run and the op counter (``repro_torch.launch.dryrun``,
+    ``trace_analysis``, ``roofline``, ``analysis.trace_lint``).
+
+    1. The train step ``build_training`` runs on minicpm-2b-4l (phase
+       mesh's 8 x 512 in microbatches of 2, ``mesh=None``), uncounted: ms
+       a step (the median of steps 2..3) and one step under the profiler
+       (device busy).
+    2. The dry run's three cells start, each in its own process and fake
+       world on ``meta`` (:data:`DRYRUN_CELLS`).
+    3. Meanwhile the same step counted on the card and on ``meta``: flops,
+       bytes and collectives equal, and the counted step's loss bitwise
+       equal to the uncounted one's first step; the roofline's terms with
+       the H100's constants, each beside the measured ms and busy ms.
+    4. Phase train's int4+EF DP step counted on the kernel route and on
+       the plain route: the same flops and bytes, two transport launches
+       per compressed bucket at one rank (``lint_collective_counts``: the
+       quantize round trip; four on more ranks) matching the kernels'
+       own counters, ``lint_compressed_wire`` clean.
+    5. The cells' records: each ``ok``; roofline terms, dominant term,
+       trace seconds printed.
+
+    A CPU rehearsal (``device="cpu"``, a reduced ``cfg`` and ``sizes``,
+    ``torch.cuda``'s synchronize and memory calls stubbed) skips the
+    profile and the kernel route's own counters."""
+    from repro_torch.analysis import trace_lint as tl
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.trace_analysis import analyze_trace, trace_call
+
+    t_phase = time.perf_counter()
+    # 1. uncounted, timed
+    _free()
+    step, state, batch = _count_model(cfg, device, sizes)
+    times, losses = [], []
+    for _ in range(sizes["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))  # the loss's copy ends the step
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times[1:]) * 1e3
+    prof = (_profile(lambda: step(state, batch), "profile_dryrun_step.txt")
+            if device != "cpu" else {"device_busy_ms": None,
+                                     "kernel_launches": None})
+    del step, state
+    _free()
+    procs = _dryrun_start()
+    try:
+        # 3. the same first step, counted on the card and on meta
+        step, state, batch = _count_model(cfg, device, sizes)
+        (state, m), card_trace = trace_call(step, state, batch)
+        counted_loss = float(m["loss"])
+        del step, state, batch, m
+        _free()
+        step, state, batch = _count_model(cfg, "meta", sizes)
+        _, meta_trace = trace_call(step, state, batch)
+        del step, state, batch
+        card, meta = analyze_trace(card_trace), analyze_trace(meta_trace)
+        roof = rl.analyze(card, 1, rl.model_flops(cfg, _shape_of(sizes)))
+        largest = max(roof.compute_s, roof.memory_s, roof.collective_s)
+        counter = {
+            "config": cfg.name, "batch": [sizes["batch"], sizes["seq"]],
+            "microbatch": sizes["microbatch"], "card": _stats_row(card),
+            "meta_equal": _stats_row(card) == _stats_row(meta),
+            "loss_uncounted": losses[0], "loss_counted": counted_loss,
+            "loss_bitwise": counted_loss == losses[0],
+            "compute_s": roof.compute_s, "memory_s": roof.memory_s,
+            "memory_kernel_s": roof.memory_kernel_s,
+            "collective_s": roof.collective_s, "dominant": roof.dominant,
+            "model_flops": roof.model_flops_per_chip,
+            "useful_flops_ratio": roof.useful_flops_ratio,
+            "peak_bytes_counted": card_trace.peak_bytes,
+            "ms_per_step": ms, "step_ms": [t * 1e3 for t in times],
+            "device_busy_ms": prof["device_busy_ms"],
+            "kernel_launches_profiled": prof["kernel_launches"],
+            "largest_term_over_ms": largest * 1e3 / ms,
+            "largest_term_over_busy": (
+                largest * 1e3 / prof["device_busy_ms"]
+                if prof["device_busy_ms"] else None),
+        }
+        del card_trace, meta_trace
+        # 4. the transport's two routes
+        routes = {}
+        for route in ("auto", "plain"):
+            st, trace, buckets, launches, loss = _dp_route_count(
+                cfg, route, device)
+            routes[route] = {
+                "flops": st.flops, "bytes": st.memory_bytes,
+                "events": st.kernel_launches, "kernel_counters": launches,
+                "buckets": buckets, "loss": loss,
+                "lint_counts": [v.message for v in tl.lint_collective_counts(
+                    trace, {"transport.quantize_pack": buckets,
+                            "transport.unpack_dequantize": buckets})],
+                "lint_wire": [v.message for v in tl.lint_compressed_wire(
+                    trace, bits=4)],
+            }
+            del trace
+    except BaseException:
+        _stop(procs)
+        raise
+    # 5. the dry run's cells
+    cells = _dryrun_finish(procs)
+    for c in cells:
+        print(f"dryrun {c['cell']} {c['opts'] or '-'}: ok={c['ok']} "
+              f"compute_s={c['compute_s']!r} memory_s={c['memory_s']!r} "
+              f"collective_s={c['collective_s']!r} "
+              f"dominant={c['dominant']} trace_s={c['trace_s']!r}",
+              flush=True)
+    emit({"phase": "dryrun", "nvidia_smi": smi, "cells": cells,
+          "counter": counter, "transport_routes": routes,
+          "constants": dataclasses.asdict(rl.H100_SXM),
+          "phase_s": time.perf_counter() - t_phase})
+    bad = []
+    if not counter["meta_equal"]:
+        bad.append("the card's count differs from meta's")
+    if not counter["loss_bitwise"]:
+        bad.append("the counted step's loss differs from the uncounted")
+    a, p = routes["auto"], routes["plain"]
+    if (a["flops"], a["bytes"]) != (p["flops"], p["bytes"]):
+        bad.append("the kernel route and the plain route count differently")
+    for name, r in routes.items():
+        if r["lint_counts"] or r["lint_wire"]:
+            bad.append(f"{name}: {r['lint_counts'] + r['lint_wire']}")
+    b = a["buckets"]
+    if device != "cpu" and a["kernel_counters"] != {
+            "quantize_pack": b, "unpack_dequantize": b}:
+        bad.append(f"kernel route launched {a['kernel_counters']}")
+    if any(p["kernel_counters"].values()):
+        bad.append("the plain route launched a kernel")
+    if bad:
+        raise AssertionError("phase dryrun: " + "; ".join(bad))
+    return {k: a["kernel_counters"][k]
+            for k in ("quantize_pack", "unpack_dequantize")}
+
+
+def _shape_of(sizes):
+    from repro_torch.configs.base import ShapeConfig
+
+    return ShapeConfig("count", sizes["seq"], sizes["batch"], "train")
+
+
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
@@ -3047,6 +3333,7 @@ def main() -> None:
     whisper_launches = phase_whisper(smi)
     mesh_launches = phase_mesh(smi)
     mesh_serve_launches = phase_mesh_serve(smi)
+    dryrun_launches = phase_dryrun(smi)
     t4 = k["timing"][4]
     replaces = {"quantize_pack": "src/repro/kernels/transport.py:158",
                 "unpack_dequantize": "src/repro/kernels/transport.py:222"}
@@ -3068,6 +3355,8 @@ def main() -> None:
          "launches_mesh_grad_sync": mesh_launches[name],
          # decode and prefill on a (1, 1) mesh (phase mesh_serve)
          "launches_mesh_serve": mesh_serve_launches[name],
+         # the counted int4+EF DP step on the kernel route (phase dryrun)
+         "launches_dryrun": dryrun_launches[name],
          "max_abs_err": k["max_abs_err"],
          "ms": t4[name][0], "plain_ms": t4[name][1],
          "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],

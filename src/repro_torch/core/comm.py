@@ -101,6 +101,12 @@ class RankGroups:
     peers: tuple[int, ...] | None = None
 
 
+# process group name -> the partition of the world its group belongs to
+# (every grid's group of the same axis), for the trace lint's replica-group
+# rule (repro_torch.analysis.trace_lint)
+GROUP_PARTITIONS: dict[str, tuple] = {}
+
+
 def _build_groups(n_nodes: int, ppn: int) -> RankGroups:
     """This rank's groups in the ``(n_nodes, ppn)`` grid of the whole
     world (``rank = node * ppn + lane``)."""
@@ -133,22 +139,29 @@ def _build_grid_groups(grids: np.ndarray) -> RankGroups:
         (grids.reshape(-1) == np.arange(grids.size)).all())
     (o,), (node,), (lane,) = np.nonzero(grids == dist.get_rank())
     intra = inter = world = Group.alone()
+    rows = lambda g: tuple(tuple(int(r) for r in x) for x in g)  # noqa: E731
     for c in range(copies):
         if ppn > 1:
             for j in range(n_nodes):
                 pg = dist.new_group(grids[c, j].tolist())
                 if (c, j) == (o, node):
                     intra = Group(pg, ppn, int(lane))
+                    GROUP_PARTITIONS[pg.group_name] = rows(
+                        grids.reshape(-1, ppn))
         if n_nodes > 1:
             for r in range(ppn):
                 pg = dist.new_group(grids[c, :, r].tolist())
                 if (c, r) == (o, lane):
                     inter = Group(pg, n_nodes, int(node))
+                    GROUP_PARTITIONS[pg.group_name] = rows(
+                        grids.transpose(0, 2, 1).reshape(-1, n_nodes))
         if group > 1:
             pg = (dist.group.WORLD if whole
                   else dist.new_group(grids[c].reshape(-1).tolist()))
             if c == o:
                 world = Group(pg, group, int(node * ppn + lane))
+                GROUP_PARTITIONS[pg.group_name] = rows(
+                    grids.reshape(copies, -1))
     return RankGroups(int(node * ppn + lane), intra, inter, world,
                       peers=None if whole else tuple(
                           int(r) for r in grids[o].reshape(-1)))

@@ -32,6 +32,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from ..trace_regions import kernel_region
 from . import _build, ref
 
 __all__ = [
@@ -177,29 +178,35 @@ def quantize_pack(
     ``offsets`` the leaf start indices, ``base``/``row_stride`` the
     global-index plumbing (module docstring).
     """
-    offsets = tuple(int(o) for o in offsets)
-    scales = scales.reshape(-1)
-    _check_args(bits, block, scales, offsets)
-    if x.dim() != 2 or x.dtype != torch.float32:
-        raise ValueError(
-            f"x must be a 2-D float32 tensor, got {x.dtype} {tuple(x.shape)}"
-        )
-    pad = (-x.shape[1]) % block
-    xp = F.pad(x, (0, pad)) if pad else x
-    R, Cp = xp.shape
-    if not _use_kernel(xp, scales, impl, block):
-        return ref.quantize_pack_ref(
-            xp, scales, offsets=offsets, bits=bits, base=base,
-            row_stride=row_stride, block=block,
-        )
-    if xp.data_ptr() % 16:
-        xp = xp.clone()  # the kernel loads x as float4s
-    out_cols = Cp // 2 if bits == 4 else Cp
-    out = torch.empty((R, out_cols), dtype=wire_dtype(bits), device=xp.device)
-    _launch("repro_quantize_pack", xp, out, scales, offsets, R, Cp, base,
-            row_stride, bits)
-    LAUNCHES["quantize_pack"] += 1
-    return out
+    # a kernel region of the op tracer: x read and the wire written once,
+    # on the kernel route and the plain route alike
+    with kernel_region("transport.quantize_pack", lambda: x.shape[0] * (
+            4 * x.shape[1]
+            + -(-x.shape[1] // block) * block * wire_itemsize(bits))):
+        offsets = tuple(int(o) for o in offsets)
+        scales = scales.reshape(-1)
+        _check_args(bits, block, scales, offsets)
+        if x.dim() != 2 or x.dtype != torch.float32:
+            raise ValueError(
+                f"x must be a 2-D float32 tensor, got {x.dtype} "
+                f"{tuple(x.shape)}")
+        pad = (-x.shape[1]) % block
+        xp = F.pad(x, (0, pad)) if pad else x
+        R, Cp = xp.shape
+        if not _use_kernel(xp, scales, impl, block):
+            return ref.quantize_pack_ref(
+                xp, scales, offsets=offsets, bits=bits, base=base,
+                row_stride=row_stride, block=block,
+            )
+        if xp.data_ptr() % 16:
+            xp = xp.clone()  # the kernel loads x as float4s
+        out_cols = Cp // 2 if bits == 4 else Cp
+        out = torch.empty((R, out_cols), dtype=wire_dtype(bits),
+                          device=xp.device)
+        _launch("repro_quantize_pack", xp, out, scales, offsets, R, Cp, base,
+                row_stride, bits)
+        LAUNCHES["quantize_pack"] += 1
+        return out
 
 
 def unpack_dequantize(
@@ -221,33 +228,36 @@ def unpack_dequantize(
     indices of the *received* rows: all-to-all-received copies of one
     block use ``row_stride=0``.
     """
-    offsets = tuple(int(o) for o in offsets)
-    scales = scales.reshape(-1)
-    _check_args(bits, block, scales, offsets)
-    if wire.dim() != 2 or wire.dtype != wire_dtype(bits):
-        raise ValueError(
-            f"wire must be a 2-D {wire_dtype(bits)} tensor at bits={bits}, "
-            f"got {wire.dtype} {tuple(wire.shape)}"
-        )
-    R, Cw = wire.shape
-    wblock = block // 2 if bits == 4 else block
-    if Cw % wblock:
-        raise ValueError(
-            f"wire width {Cw} is not a multiple of the {wblock}-byte "
-            f"wire block (bits={bits}, block={block})"
-        )
-    if not _use_kernel(wire, scales, impl, block):
-        out = ref.unpack_dequantize_ref(
-            wire, scales, offsets=offsets, bits=bits, base=base,
-            row_stride=row_stride, block=block,
-        )
+    # a kernel region of the op tracer: the wire read and the values
+    # written once, on the kernel route and the plain route alike
+    with kernel_region("transport.unpack_dequantize",
+                       lambda: wire.numel() + 4 * wire.shape[0] * cols):
+        offsets = tuple(int(o) for o in offsets)
+        scales = scales.reshape(-1)
+        _check_args(bits, block, scales, offsets)
+        if wire.dim() != 2 or wire.dtype != wire_dtype(bits):
+            raise ValueError(
+                f"wire must be a 2-D {wire_dtype(bits)} tensor at "
+                f"bits={bits}, got {wire.dtype} {tuple(wire.shape)}"
+            )
+        R, Cw = wire.shape
+        wblock = block // 2 if bits == 4 else block
+        if Cw % wblock:
+            raise ValueError(
+                f"wire width {Cw} is not a multiple of the {wblock}-byte "
+                f"wire block (bits={bits}, block={block})"
+            )
+        if not _use_kernel(wire, scales, impl, block):
+            out = ref.unpack_dequantize_ref(
+                wire, scales, offsets=offsets, bits=bits, base=base,
+                row_stride=row_stride, block=block,
+            )
+            return out[:, :cols]
+        if wire.data_ptr() % 16:
+            wire = wire.clone()  # the kernel loads 16 wire bytes at a time
+        out = torch.empty((R, (Cw // wblock) * block), dtype=torch.float32,
+                          device=wire.device)
+        _launch("repro_unpack_dequantize", wire, out, scales, offsets, R, Cw,
+                base, row_stride, bits)
+        LAUNCHES["unpack_dequantize"] += 1
         return out[:, :cols]
-    if wire.data_ptr() % 16:
-        wire = wire.clone()  # the kernel loads 16 wire bytes at a time
-    out = torch.empty(
-        (R, (Cw // wblock) * block), dtype=torch.float32, device=wire.device
-    )
-    _launch("repro_unpack_dequantize", wire, out, scales, offsets, R, Cw,
-            base, row_stride, bits)
-    LAUNCHES["unpack_dequantize"] += 1
-    return out[:, :cols]

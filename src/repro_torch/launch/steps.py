@@ -97,14 +97,33 @@ def microbatch_split(cfg, shape, mesh) -> int:
 
 def _microbatches(batch: dict, n_micro: int) -> list[dict]:
     """Microbatch ``i`` is rows ``[i * B_m, (i + 1) * B_m)`` of every
-    leaf, as the reference's ``reshape((n_micro, -1) + shape[1:])``."""
+    leaf, as the reference's ``reshape((n_micro, -1) + shape[1:])``.  A
+    DTensor leaf has its rows gathered once, and each microbatch is laid
+    out as the leaf was (its rows over the same mesh dimensions where
+    they divide ``B_m``, else replicated over them): the view would not
+    split rows sharded over more ranks than ``n_micro``."""
     for k, x in batch.items():
         if x.shape[0] % n_micro:
             raise ValueError(f"batch leaf {k!r} of {x.shape[0]} rows does "
                              f"not split into {n_micro} microbatches")
-    split = {k: x.reshape((n_micro, -1) + tuple(x.shape[1:]))
+    split = {k: _split_rows(x, n_micro) if is_dtensor(x)
+             else x.reshape((n_micro, -1) + tuple(x.shape[1:]))
              for k, x in batch.items()}
     return [{k: x[i] for k, x in split.items()} for i in range(n_micro)]
+
+
+def _split_rows(x, n_micro: int) -> list:
+    """The ``n_micro`` row blocks of DTensor ``x``, each laid out as ``x``."""
+    from torch.distributed.tensor import Replicate
+
+    dm, lay = x.device_mesh, list(x.placements)
+    rows = x.redistribute(dm, [Replicate() if p.is_shard(0) else p
+                               for p in lay])
+    b_m = x.shape[0] // n_micro
+    ranks = math.prod(dm.size(i) for i, p in enumerate(lay) if p.is_shard(0))
+    want = lay if b_m % ranks == 0 else list(rows.placements)
+    return [rows[i * b_m:(i + 1) * b_m].redistribute(dm, want)
+            for i in range(n_micro)]
 
 
 def make_train_step(model, opt_cfg, *, n_micro: int = 1,

@@ -27,8 +27,10 @@ import math
 
 import torch
 
+from ..trace_regions import kernel_region
 from .layers import apply_rope, dense, init_dense, softcap
-from .sharding import ShardingPolicy, block_index, from_block, is_dtensor
+from .sharding import (ShardingPolicy, block_index, from_block, is_dtensor,
+                       split_dim)
 
 __all__ = ["init_attention", "attention_full", "init_cache",
            "attention_decode"]
@@ -61,15 +63,13 @@ def _project_qkv(params, x, kv_src, cfg, positions, kv_positions,
                  rope: bool = True):
     """q (B, S, H, hd) from ``x``, k, v (B, Sk, KV, hd) from ``kv_src``,
     bias applied, and RoPE unless ``rope`` is false."""
-    B, S, _ = x.shape
-    Sk = kv_src.shape[1]
     hd = cfg.resolved_head_dim
     q = dense(x, params["w_q"], params.get("b_q"))
     k = dense(kv_src, params["w_k"], params.get("b_k"))
     v = dense(kv_src, params["w_v"], params.get("b_v"))
-    q = q.reshape(B, S, cfg.num_heads, hd)
-    k = k.reshape(B, Sk, cfg.num_kv_heads, hd)
-    v = v.reshape(B, Sk, cfg.num_kv_heads, hd)
+    q = split_dim(q, 2, (cfg.num_heads, hd))
+    k = split_dim(k, 2, (cfg.num_kv_heads, hd))
+    v = split_dim(v, 2, (cfg.num_kv_heads, hd))
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, kv_positions, cfg.rope_theta, cfg.mrope_sections)
@@ -84,21 +84,31 @@ def _sdpa_chunk(q, k, v, cfg, q_pos, k_pos, window, causal=True):
     ``preferred_element_type=float32``.  Not causal and with no window,
     every key is attended (the query and key positions are not read)."""
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
-    scores = torch.matmul(
-        q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)
-    ) * scale
-    scores = softcap(scores, cfg.attn_logit_softcap)
-    if causal or window is not None:
-        rel = q_pos[:, None] - k_pos[None, :]
-        mask = rel >= 0 if causal else torch.ones_like(rel, dtype=torch.bool)
-        if window is not None:
-            mask &= rel < window
-        scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.matmul(
-        probs.to(v.dtype).to(torch.float32), v.to(torch.float32)
-    )
-    return out.to(q.dtype)
+    # the op tracer's attention region: a flash kernel would move q, k, v
+    # and the output only (the reference's attn_io accounting)
+    with kernel_region("attention.scores", lambda: 2 * _nbytes(q)
+                       + _nbytes(k) + _nbytes(v), kind="attn") as region:
+        scores = torch.matmul(
+            q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)
+        ) * scale
+        scores = softcap(scores, cfg.attn_logit_softcap)
+        if causal or window is not None:
+            rel = q_pos[:, None] - k_pos[None, :]
+            mask = rel >= 0 if causal else torch.ones_like(rel,
+                                                           dtype=torch.bool)
+            if window is not None:
+                mask &= rel < window
+            scores = torch.where(mask, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.matmul(
+            probs.to(v.dtype).to(torch.float32), v.to(torch.float32)
+        ).to(q.dtype)
+        region.output(out)
+    return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _attend_local(policy, attend, q, k, v):
@@ -149,7 +159,7 @@ def attention_full(params, x: torch.Tensor, *, cfg, positions: torch.Tensor,
     k = policy.act(k, kind="kv")
     v = policy.act(v, kind="kv")
     # (B, S, K, G, h) -> (B, K, G, S, h); k/v -> (B, K, 1, Sk, h)
-    q = q.reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4)
+    q = split_dim(q, 2, (K, G)).permute(0, 2, 3, 1, 4)
     k = k.permute(0, 2, 1, 3)[:, :, None]
     v = v.permute(0, 2, 1, 3)[:, :, None]
     q_pos = torch.arange(S, device=x.device)
@@ -223,24 +233,27 @@ def _attend_cached(q, k, v, pos, index, cfg, window, merge=None):
     "sum") reduces over the ranks that hold the other blocks of the same
     rows and heads: the softmax's max and sum and the weighted sum are
     merged across them.  Returns (B, K, G, h) float32."""
-    scores = torch.matmul(
-        q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)
-    ) * (1.0 / math.sqrt(cfg.resolved_head_dim))
-    scores = softcap(scores, cfg.attn_logit_softcap)
-    idx = index[:, None]
-    valid = (pos >= 0) & (pos <= idx)
-    if window is not None:
-        valid &= pos > idx - window
-    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
-    if merge is None:
-        probs = torch.softmax(scores, dim=-1)
-        return torch.matmul(probs.to(v.dtype).to(torch.float32),
-                            v.to(torch.float32))
-    m = merge(scores.amax(dim=-1, keepdim=True), "max")
-    e = torch.exp(scores - m)
-    probs = e / merge(e.sum(dim=-1, keepdim=True), "sum")
-    return merge(torch.matmul(probs.to(v.dtype).to(torch.float32),
-                              v.to(torch.float32)), "sum")
+    with kernel_region("attention.cached", lambda: _nbytes(q) * 3
+                       + _nbytes(k) + _nbytes(v) + _nbytes(pos),
+                       kind="attn"):
+        scores = torch.matmul(
+            q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)
+        ) * (1.0 / math.sqrt(cfg.resolved_head_dim))
+        scores = softcap(scores, cfg.attn_logit_softcap)
+        idx = index[:, None]
+        valid = (pos >= 0) & (pos <= idx)
+        if window is not None:
+            valid &= pos > idx - window
+        scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+        if merge is None:
+            probs = torch.softmax(scores, dim=-1)
+            return torch.matmul(probs.to(v.dtype).to(torch.float32),
+                                v.to(torch.float32))
+        m = merge(scores.amax(dim=-1, keepdim=True), "max")
+        e = torch.exp(scores - m)
+        probs = e / merge(e.sum(dim=-1, keepdim=True), "sum")
+        return merge(torch.matmul(probs.to(v.dtype).to(torch.float32),
+                                  v.to(torch.float32)), "sum")
 
 
 def _decode_on_mesh(policy, q, k_new, v_new, cache, index, cfg, window):

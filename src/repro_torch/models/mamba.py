@@ -17,8 +17,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..trace_regions import kernel_region
 from .layers import dense, init_dense
-from .sharding import assign, settle
+from .sharding import ShardingPolicy, assign, on_blocks, settle
 
 __all__ = ["init_mamba", "mamba_full", "init_mamba_cache", "mamba_decode"]
 
@@ -68,8 +69,32 @@ def _dt_B_C(params, x, cfg):
     return dt, B.to(torch.float32), C.to(torch.float32)
 
 
-def mamba_full(params, u: torch.Tensor, *, cfg) -> torch.Tensor:
-    """Full-sequence mamba: u (B, S, D) -> (B, S, D)."""
+def _scan(dt, dBx_in, Bmat, Cmat, A):
+    """The selective scan: dt, dBx_in (B, S, d_in), Bmat / Cmat (B, S, N),
+    A (d_in, N) -> y (B, S, d_in) float32, one step at a time."""
+    Bsz, S, d_inner = dt.shape
+    # the op tracer's time-scan region: a scan kernel would read its inputs
+    # and write y once (the reference's timescan_io accounting)
+    with kernel_region("mamba.scan", lambda: sum(
+            t.numel() * t.element_size()
+            for t in (dt, dBx_in, Bmat, Cmat, A, y)), kind="timescan") as r:
+        state = torch.zeros((Bsz, d_inner, A.shape[1]), dtype=torch.float32,
+                            device=dt.device)
+        ys = []
+        for t in range(S):
+            dA = torch.exp(dt[:, t, :, None] * A)            # (B,d_in,N)
+            dBx = dBx_in[:, t, :, None] * Bmat[:, t, None, :]
+            state = state * dA + dBx
+            ys.append(torch.einsum("bdn,bn->bd", state, Cmat[:, t]))
+        y = torch.stack(ys, dim=1)  # (B,S,d_in)
+        r.output(y)
+    return y
+
+
+def mamba_full(params, u: torch.Tensor, *, cfg,
+               policy: ShardingPolicy = ShardingPolicy()) -> torch.Tensor:
+    """Full-sequence mamba: u (B, S, D) -> (B, S, D).  On a mesh the scan
+    runs on each rank's rows and channels (:func:`sharding.on_blocks`)."""
     m, d_inner, _ = _dims(cfg)
     Bsz, S, _ = u.shape
     x, z = torch.chunk(dense(u, params["w_in"]), 2, dim=-1)
@@ -89,15 +114,11 @@ def mamba_full(params, u: torch.Tensor, *, cfg) -> torch.Tensor:
                           for t in (dt, Bmat, Cmat))
     A = -torch.exp(params["A_log"])  # (d_in, N)
     dBx_in = dt * x.to(torch.float32)
-    state = torch.zeros((Bsz, d_inner, m.d_state), dtype=torch.float32,
-                        device=u.device)
-    ys = []
-    for t in range(S):
-        dA = torch.exp(dt[:, t, :, None] * A)            # (B,d_in,N)
-        dBx = dBx_in[:, t, :, None] * Bmat[:, t, None, :]
-        state = state * dA + dBx
-        ys.append(torch.einsum("bdn,bn->bd", state, Cmat[:, t]))
-    y = torch.stack(ys, dim=1)  # (B,S,d_in)
+    dp, tp = policy.dp, policy.tp_axis
+    y = on_blocks(policy, _scan, [(dt, (dp, None, tp)),
+                                  (dBx_in, (dp, None, tp)),
+                                  (Bmat, (dp, None, None)),
+                                  (Cmat, (dp, None, None)), (A, (tp, None))])
     y = y + x.to(torch.float32) * params["D"]
     y = y.to(u.dtype) * F.silu(z)
     return dense(y, params["w_out"])

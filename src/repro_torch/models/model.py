@@ -52,7 +52,7 @@ from torch import nn
 
 from . import transformer as tfm
 from .layers import head_dot, mixed_bwd, rms_norm, softcap
-from .sharding import ShardingPolicy, is_dtensor
+from .sharding import ShardingPolicy, grad_in_layout, is_dtensor
 from .. import tree as tree_util
 from ..device import resolve_device
 
@@ -273,17 +273,49 @@ class Model(nn.Module):
             return self.policy.act(logits, kind="logits"), cache
 
 
-def _embed_tokens(params, tokens, cfg):
-    x = params["embedding"][tokens].to(_dtype(cfg))
+def _embed_tokens(params, tokens, cfg, policy=ShardingPolicy()):
+    table = params["embedding"]
+    if is_dtensor(table) and torch.is_grad_enabled():
+        if any(p.is_shard(0) for p in table.placements):
+            # a vocabulary over the model axis: the table is gathered over
+            # its FSDP axes first, as FSDP gathers a weight before its use
+            # (left sharded there, the lookup's backward asks DTensor for
+            # Shard -> Partial, which the card's torch 2.11 lacks)
+            x = policy.constrain(table, (policy.tp_axis, None))[tokens]
+        else:
+            x = _lookup_on_blocks(table, tokens)
+    else:
+        x = table[tokens]
+    x = x.to(_dtype(cfg))
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
     return x
 
 
+def _lookup_on_blocks(table, tokens):
+    """``table[tokens]`` on each rank's block of a table whose vocabulary is
+    not sharded (its columns over the data axes: a vocabulary the model
+    axis does not divide), the ids replicated.  Every rank looks up all
+    the rows of its columns, so its block's gradient is whole: the
+    gradient keeps the table's own layout (no partial sums, which the
+    card's torch 2.11 could not add to the tied head's)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dm = table.device_mesh
+    ids = tokens.redistribute(dm, [Replicate()] * dm.ndim).to_local()
+    rows = table.to_local()[ids]
+    where = [Shard(ids.dim()) if p == Shard(1) else p
+             for p in table.placements]
+    return DTensor.from_local(rows, dm, where, run_check=False)
+
+
 def _head_weights(params, cfg):
     if cfg.tie_embeddings:
-        return params["embedding"].T  # (D, V)
+        # the head's gradient comes back in the table's layout, as the
+        # lookup's does: the card's torch 2.11 could not add the two in
+        # the layouts DTensor gives them (Shard -> Partial)
+        return grad_in_layout(params["embedding"]).T  # (D, V)
     return params["lm_head"]
 
 
@@ -310,7 +342,8 @@ def _final_hidden(params, batch, cfg, policy=ShardingPolicy()):
         # on a mesh the lookup takes replicated ids (DTensor's index_put
         # rule fails on batch-sharded ids in the backward); the hidden
         # state is laid out by batch right after
-        x = _embed_tokens(params, policy.constrain(batch["tokens"], ()), cfg)
+        x = _embed_tokens(params, policy.constrain(batch["tokens"], ()), cfg,
+                          policy)
     B, S = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:

@@ -19,8 +19,9 @@ from __future__ import annotations
 
 import torch
 
+from ..trace_regions import kernel_region
 from .layers import dense, init_dense
-from .sharding import assign
+from .sharding import ShardingPolicy, assign, on_blocks, split_dim
 
 __all__ = ["init_rwkv", "rwkv_full", "init_rwkv_cache", "rwkv_decode",
            "init_rwkv_cm", "rwkv_cm_full", "rwkv_cm_decode"]
@@ -104,19 +105,40 @@ def _step(state, r, k, v, w, u):
     return out, w[..., :, None] * state + kv
 
 
-def rwkv_full(params, x: torch.Tensor, *, cfg) -> torch.Tensor:
-    """Full-sequence time-mix: x (B, S, D) -> (B, S, D)."""
+def _scan(r, k, v, w, u):
+    """The recurrence over r / k / v / w (B, S, H, hd) float32 with the bonus
+    u (H, hd): (B, S, H, hd) float32, one step at a time."""
+    B, S, H, hd = r.shape
+    # the op tracer's time-scan region: a scan kernel would read r / k /
+    # v / w and write the output once (the reference's timescan_io)
+    with kernel_region("rwkv6.scan", lambda: sum(
+            t.numel() * t.element_size() for t in (r, k, v, w, y)),
+            kind="timescan") as region:
+        state = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                            device=r.device)
+        outs = []
+        for t in range(S):
+            out, state = _step(state, r[:, t], k[:, t], v[:, t], w[:, t], u)
+            outs.append(out)
+        y = torch.stack(outs, dim=1)
+        region.output(y)
+    return y
+
+
+def rwkv_full(params, x: torch.Tensor, *, cfg,
+              policy: ShardingPolicy = ShardingPolicy()) -> torch.Tensor:
+    """Full-sequence time-mix: x (B, S, D) -> (B, S, D).  On a mesh the
+    recurrence runs on each rank's rows and heads
+    (:func:`sharding.on_blocks`)."""
     B, S, D = x.shape
     H, hd = _heads(cfg)
-    r, k, v, w = (t.reshape(B, S, H, hd).to(torch.float32)
+    r, k, v, w = (split_dim(t, 2, (H, hd)).to(torch.float32)
                   for t in _rwkv_inputs(params, x, _shifted(x)))
-    state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
-    outs = []
-    for t in range(S):
-        out, state = _step(state, r[:, t], k[:, t], v[:, t], w[:, t],
-                           params["bonus"])
-        outs.append(out)
-    y = torch.stack(outs, dim=1).reshape(B, S, D)
+    dp, tp = policy.dp, policy.tp_axis
+    heads = (dp, None, tp, None)
+    y = on_blocks(policy, _scan, [(r, heads), (k, heads), (v, heads),
+                                  (w, heads), (params["bonus"], (tp, None))])
+    y = y.reshape(B, S, D)
     y = _group_norm(y, params["ln_x_scale"], H, hd)
     return dense(y.to(x.dtype), params["w_o"])
 
@@ -133,15 +155,26 @@ def init_rwkv_cache(cfg, batch: int, dtype, *, device, lead=()):
     }
 
 
-def rwkv_decode(params, x: torch.Tensor, cache: dict, *, cfg):
+def rwkv_decode(params, x: torch.Tensor, cache: dict, *, cfg,
+                policy: ShardingPolicy = ShardingPolicy()):
     """One-token time-mix: x (B, 1, D) -> ((B, 1, D), cache); updates the
-    cache's ``x_prev`` and ``state`` in place."""
+    cache's ``x_prev`` and ``state`` in place.  On a mesh the step runs on
+    each rank's rows and heads of the state (:func:`sharding.on_blocks`,
+    the state's layout ``policy.cache_spec``)."""
     B = x.shape[0]
     H, hd = _heads(cfg)
     xt = x[:, 0]
-    r, k, v, w = (t.reshape(B, H, hd).to(torch.float32)
+    r, k, v, w = (split_dim(t, 1, (H, hd)).to(torch.float32)
                   for t in _rwkv_inputs(params, xt, cache["x_prev"]))
-    out, state = _step(cache["state"], r, k, v, w, params["bonus"])
+    held = cache["state"]
+    spec = (policy.cache_spec("state", (1,) + tuple(held.shape))[1:]
+            if policy.mesh is not None else ())
+    spec = tuple(spec) + (None,) * (4 - len(spec))
+    heads = spec[:2] + (None,)
+    out, state = on_blocks(
+        policy, _step, [(held, spec), (r, heads), (k, heads), (v, heads),
+                        (w, heads), (params["bonus"], spec[1:2] + (None,))],
+        like=(1, 0))
     y = _group_norm(out.reshape(B, -1), params["ln_x_scale"], H, hd)
     y = dense(y.to(x.dtype), params["w_o"])[:, None]
     assign(cache["x_prev"], xt)

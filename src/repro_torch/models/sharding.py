@@ -52,7 +52,8 @@ import torch
 
 __all__ = ["ShardingPolicy", "REPLICATED", "placements", "is_dtensor",
            "spec_leaves", "replicated_scope", "assign", "local_block",
-           "from_block", "block_index", "settle"]
+           "from_block", "block_index", "settle", "split_dim",
+           "on_blocks", "grad_in_layout"]
 
 REPLICATED: tuple = ()
 
@@ -547,6 +548,52 @@ def from_block(y, device_mesh, where):
     return DTensor.from_local(y, device_mesh, list(where), run_check=False)
 
 
+def on_blocks(policy, fn, args, like=0):
+    """``fn`` on each rank's blocks: ``args`` are ``(tensor, spec)`` pairs,
+    each laid out by its spec (fitted to its shape) and handed to ``fn`` as
+    this rank's block (:func:`local_block`); ``fn``'s result, this rank's
+    block of a tensor laid out as argument ``like`` (a tuple of results
+    with ``like`` a tuple of argument indices), comes back as DTensors
+    (:func:`from_block`).  For work independent per block (a recurrence per
+    row and channel): it runs on local tensors, with no DTensor dispatch
+    per op.  Without a mesh, ``fn`` on the tensors."""
+    if policy.mesh is None:
+        return fn(*(t for t, _ in args))
+    placed = [policy.constrain(t, spec) for t, spec in args]
+    out = fn(*(local_block(t, list(t.placements)) for t in placed))
+    back = lambda y, i: from_block(  # noqa: E731
+        y, placed[i].device_mesh, list(placed[i].placements))
+    if isinstance(like, tuple):
+        return tuple(back(y, i) for y, i in zip(out, like))
+    return back(out, like)
+
+
+class _GradInLayout(torch.autograd.Function):
+    """Identity forward; the gradient redistributed to the input's
+    layout."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def grad_in_layout(x):
+    """``x``, whose gradient comes back in ``x``'s own layout (a DTensor
+    used at several sites sums gradients that all arrive so); anything
+    but a DTensor needing a gradient as it is."""
+    if not is_dtensor(x) or not x.requires_grad \
+            or not torch.is_grad_enabled():
+        return x
+    return _GradInLayout.apply(x)
+
+
 def settle(x):
     """``x`` with the partial sums of a DTensor reduced (its ``Partial``
     mesh dimensions made ``Replicate``); anything else as it is.  A
@@ -558,6 +605,25 @@ def settle(x):
         return x
     return x.redistribute(x.device_mesh, [
         Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def split_dim(x, dim: int, sizes: tuple):
+    """``x`` with dimension ``dim`` split into ``sizes`` (a reshape).  A
+    DTensor whose ``dim`` is sharded over ranks that do not divide
+    ``sizes[0]`` has that dimension gathered first: DTensor views no
+    uneven shard, where GSPMD pads one (36 heads over 16 ranks)."""
+    dim = dim % x.dim()
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        dm = x.device_mesh
+        ranks = math.prod(dm.size(i) for i, p in enumerate(x.placements)
+                          if p.is_shard(dim))
+        if sizes[0] % ranks:
+            x = x.redistribute(dm, [Replicate() if p.is_shard(dim) else p
+                                    for p in x.placements])
+    return x.reshape(tuple(x.shape[:dim]) + tuple(sizes)
+                     + tuple(x.shape[dim + 1:]))
 
 
 def block_index(device_mesh, dims) -> int:

@@ -100,9 +100,9 @@ def _post(p, h, name, cfg):
 def _cross(p, x, cfg, positions, enc_out, policy):
     """The cross-attention block: ``x`` plus attention over ``enc_out``."""
     h = rms_norm(x, p["norm_cross"], cfg.norm_eps)
-    return x + attn_mod.attention_full(p["cross"], h, cfg=cfg,
-                                       positions=positions, causal=False,
-                                       kv_src=enc_out, policy=policy)
+    h = attn_mod.attention_full(p["cross"], h, cfg=cfg, positions=positions,
+                                causal=False, kv_src=enc_out, policy=policy)
+    return x + policy.act(h, kind="hidden")
 
 
 def _sublayer_full(p, x, sub, *, cfg, positions, causal, enc_out, policy):
@@ -113,12 +113,15 @@ def _sublayer_full(p, x, sub, *, cfg, positions, causal, enc_out, policy):
                                     window=_window(cfg, sub), causal=causal,
                                     policy=policy)
     elif sub.mixer == "mamba":
-        h = mamba_mod.mamba_full(p["mixer"], h, cfg=cfg)
+        h = mamba_mod.mamba_full(p["mixer"], h, cfg=cfg, policy=policy)
     elif sub.mixer == "rwkv6":
-        h = rwkv_mod.rwkv_full(p["mixer"], h, cfg=cfg)
+        h = rwkv_mod.rwkv_full(p["mixer"], h, cfg=cfg, policy=policy)
     else:
         h = torch.zeros_like(h)
-    x = x + _post(p, h, "norm1_post", cfg)
+    # a branch's partial sums are reduced into the residual's layout here:
+    # left partial, DTensor would reduce-scatter them over the rows and
+    # then gather whole weights for the next projection
+    x = x + _post(p, policy.act(h, kind="hidden"), "norm1_post", cfg)
     if "cross" in p:
         x = _cross(p, x, cfg, positions, enc_out, policy)
 
@@ -131,7 +134,7 @@ def _sublayer_full(p, x, sub, *, cfg, positions, causal, enc_out, policy):
             h, aux = moe_mod.moe_apply(p["ffn"], h, cfg=cfg, policy=policy)
         else:
             h = glu_mlp(p["ffn"], h, cfg.act)
-        x = x + _post(p, h, "norm2_post", cfg)
+        x = x + _post(p, policy.act(h, kind="hidden"), "norm2_post", cfg)
     return x, aux
 
 
@@ -255,7 +258,8 @@ def _sublayer_decode(p, x, cache, sub, *, cfg, index, moe_groups, enc_out,
     elif sub.mixer == "mamba":
         h, _ = mamba_mod.mamba_decode(p["mixer"], h, cache, cfg=cfg)
     elif sub.mixer == "rwkv6":
-        h, _ = rwkv_mod.rwkv_decode(p["mixer"], h, cache, cfg=cfg)
+        h, _ = rwkv_mod.rwkv_decode(p["mixer"], h, cache, cfg=cfg,
+                                    policy=policy)
     else:
         h = torch.zeros_like(h)
     x = x + _post(p, h, "norm1_post", cfg)

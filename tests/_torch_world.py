@@ -68,6 +68,16 @@ of ``mode`` and writes its results to ``<out_dir>/rank<rank>.npz``:
   ``ServeEngine(mesh=)`` / ``serve_batch(mesh=)`` on 2x2 ``("pod",
   "data")``.
 
+* ``uneven`` — the layouts that do not divide (4 ranks): reduced
+  minicpm-2b's ``make_train_step`` at n_micro 2 on a 4x1 ``("data",
+  "model")`` mesh, whose 4-row microbatches the 8-row batch's view split
+  unevenly over the data axis, beside ``mesh=None``; a 3-head, 3-KV-head
+  reduced minicpm on 2x2 (heads that do not divide the model axis): the
+  loss, its gradients and cached decode (train layout and ``serve2d``)
+  beside ``mesh=None``; and the traced int4 / int8 ``make_dp_train_step``
+  on the 2x2 grid over the plain transport, with the trace lint's rules
+  (:mod:`repro_torch.analysis.trace_lint`) and its transport launches.
+
 ``jax_train`` / ``jax_rs_ag`` / ``jax_serve`` / ``jax_sharded`` (one
 process, 4 virtual CPU devices) run the JAX package's side of ``train`` /
 ``rs_ag`` / ``serve`` (2x2) / ``sharded`` (and ``jax_mesh_serve`` the
@@ -1166,6 +1176,161 @@ def mesh_families(mesh):
     return out
 
 
+
+UNEVEN_SEQ, UNEVEN_BATCH, UNEVEN_MICRO, UNEVEN_SEED = 16, 8, 2, 5
+UNEVEN_STEPS, UNEVEN_DECODE = 2, 4
+#: the trace lint's DP steps: (bits, error feedback)
+UNEVEN_LINT = ((4, False), (8, False), (4, True))
+
+
+def uneven_heads_cfg():
+    """Reduced minicpm-2b with 3 heads, 3 KV heads and a vocabulary of 511:
+    none divides a model axis of 2 (the embedding table's columns go over
+    the data axis alone, and its lookup runs on each rank's block)."""
+    import dataclasses
+
+    from repro_torch.configs import MINICPM_2B, reduced
+
+    return dataclasses.replace(reduced(MINICPM_2B), num_heads=3,
+                               num_kv_heads=3, vocab_size=511)
+
+
+def uneven_params(cfg):
+    import torch
+
+    from repro_torch.models import init_params
+
+    return init_params(cfg, generator=torch.Generator().manual_seed(
+        UNEVEN_SEED), device="cpu")
+
+
+def _uneven_train(cfg, mesh, steps):
+    """``make_train_step`` at n_micro 2 on ``mesh`` (or ``mesh=None``):
+    the losses and the parameters after ``steps`` steps."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import make_policy, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    policy = make_policy(cfg, mesh, device="cpu")
+    model = build_model(cfg, uneven_params(cfg), policy=policy, device="cpu")
+    data = SyntheticLM(cfg.vocab_size, UNEVEN_SEQ, UNEVEN_BATCH,
+                       seed=UNEVEN_SEED, mesh=mesh,
+                       batch_axes=("data",) if mesh is not None else None)
+    grads = policy.param_specs(model.params()) if mesh is not None else None
+    step = make_train_step(model, shard_opt(), n_micro=UNEVEN_MICRO,
+                           grad_shardings=grads, device="cpu")
+    state = {"model": model, "opt": adamw_init(model.params())}
+    losses = []
+    for s in range(steps):
+        state, m = step(state, data.batch(s, "cpu"))
+        losses.append(float(m["loss"]))
+    return np.asarray(losses), [_full(p) for p in model.leaves()]
+
+
+def _uneven_heads(cfg, mesh, mode):
+    """Loss, gradients and ``UNEVEN_DECODE`` cached decode steps' logits of
+    ``cfg`` on ``mesh`` in ``mode`` (or ``mesh=None``)."""
+    import torch
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import make_policy
+    from repro_torch.models import build_model
+
+    policy = make_policy(cfg, mesh, mode=mode, device="cpu")
+    model = build_model(cfg, uneven_params(cfg), policy=policy, device="cpu")
+    batch = SyntheticLM(cfg.vocab_size, UNEVEN_SEQ, UNEVEN_BATCH,
+                        seed=UNEVEN_SEED).batch(0, "cpu")
+    out = {}
+    if mode == "train":
+        with policy.scope():
+            loss, _ = model(batch)
+            grads = torch.autograd.grad(loss, model.leaves())
+        out["loss"] = np.asarray(float(_full(loss)))
+        for i, g in enumerate(grads):
+            out[f"grad{i}"] = _full(g)
+    cache = model.init_decode(UNEVEN_BATCH, 2 * UNEVEN_DECODE)
+    tok = batch["tokens"][:, :1]
+    for t in range(UNEVEN_DECODE):
+        logits, cache = model.decode_step(cache, tok)
+        out[f"logits{t}"] = _full(logits)
+        tok = batch["tokens"][:, t + 1:t + 2]
+    return out
+
+
+def _uneven_lint(bits, ef):
+    """One traced int4 / int8 DP step on the 2x2 grid over the plain
+    transport: the trace lint's violations and the transport launches."""
+    import torch
+
+    from repro_torch.analysis import trace_lint as tl
+    from repro_torch.configs import MINICPM_2B, reduced
+    from repro_torch.core import CommPolicy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import (init_train_state, make_dp_train_step,
+                                    mesh_topology)
+    from repro_torch.launch.trace_analysis import analyze_trace, trace_call
+
+    cfg = reduced(MINICPM_2B)
+    rank, world = torch.distributed.get_rank(), 4
+    policy = CommPolicy(algorithm="nap", mean=True, compress_bits=bits,
+                        error_feedback=ef, transport_impl="plain")
+    step = make_dp_train_step(cfg, shard_opt(), mesh_topology(2, 2), policy,
+                              device="cpu")
+    state = init_train_state(cfg, shard_opt(), policy,
+                             params=uneven_params(cfg), device="cpu")
+    data = SyntheticLM(cfg.vocab_size, UNEVEN_SEQ, UNEVEN_BATCH,
+                       seed=UNEVEN_SEED, rank=rank, world=world)
+    (state, _), trace = trace_call(step, state, data.batch(0, "cpu"))
+    smallest = min(b.elems for b in step.plan.buckets)
+    rules = {
+        "wire": tl.lint_compressed_wire(trace, bits=bits,
+                                        payload_elems=smallest, ppn=2),
+        "groups": tl.lint_replica_groups(trace, num_devices=world),
+        "counts": tl.lint_collective_counts(trace, {
+            "transport": (6 if ef else 4) * step.plan.num_buckets}),
+        "stable": tl.lint_stable_trace(step, state, data.batch(1, "cpu")),
+    }
+    launches = analyze_trace(trace).kernel_launches
+    tag = f"lint_int{bits}{'_ef' if ef else ''}"
+    out = {f"{tag}_{k}": np.asarray([v.message for v in vs], dtype=str)
+           for k, vs in rules.items()}
+    out[f"{tag}_buckets"] = np.asarray(step.plan.num_buckets)
+    out[f"{tag}_launches"] = np.asarray(sum(launches.values()))
+    out[f"{tag}_wire_dtypes"] = np.asarray(sorted(
+        {d for c in trace.collectives for d in c.dtypes}), dtype=str)
+    return out
+
+
+def run_uneven(rank, world, out_dir):
+    from repro_torch.configs import MINICPM_2B, reduced
+    from repro_torch.launch import make_mesh
+
+    out = {}
+    cfg = reduced(MINICPM_2B)
+    losses, params = _uneven_train(cfg, make_mesh((4, 1), ("data", "model")),
+                                   UNEVEN_STEPS)
+    out["f1_losses"] = losses
+    for i, p in enumerate(params):
+        out[f"f1_param{i}"] = p
+    if rank == 0:
+        losses, params = _uneven_train(cfg, None, UNEVEN_STEPS)
+        out["f1_losses_none"] = losses
+        for i, p in enumerate(params):
+            out[f"f1_param_none{i}"] = p
+    cfg3 = uneven_heads_cfg()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    for mode in ("train", "serve2d"):
+        for k, v in _uneven_heads(cfg3, mesh, mode).items():
+            out[f"f2_{mode}_{k}"] = v
+        if rank == 0:
+            for k, v in _uneven_heads(cfg3, None, mode).items():
+                out[f"f2_{mode}_none_{k}"] = v
+    for bits, ef in UNEVEN_LINT:
+        out.update(_uneven_lint(bits, ef))
+    return out
+
+
 def run_jax_sharded(out_dir):
     os.environ["XLA_FLAGS"] = (
         "--xla_force_host_platform_device_count=4 "
@@ -1769,6 +1934,8 @@ def main():
             out = run_sharded(rank, world, out_dir)
         elif mode == "mesh_serve":
             out = run_mesh_serve(rank, world, out_dir)
+        elif mode == "uneven":
+            out = run_uneven(rank, world, out_dir)
         else:
             raise SystemExit(f"unknown mode {mode!r}")
         dist.barrier()

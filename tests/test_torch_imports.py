@@ -104,6 +104,14 @@ def test_guard_sees_the_encoder_decoder_modules():
     assert ROOT / "tools" / "probe_stack_backward.py" in PORT_FILES
 
 
+def test_guard_sees_the_dry_run_modules():
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("launch/dryrun.py", "launch/roofline.py",
+                "launch/trace_analysis.py", "launch/reanalyze.py",
+                "analysis/trace_lint.py", "trace_regions.py"):
+        assert port / rel in PORT_FILES, rel
+
+
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_launch_serve_runs_every_arch_on_cpu(arch, capsys):
     launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
