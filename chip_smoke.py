@@ -218,6 +218,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    counted on the kernel and plain routes (equal; a launch of each
    transport kernel per compressed bucket at one rank; the wire lint
    clean).
+20. ``analysis``: the proof chain of ``repro_torch.analysis``
+   (``phase_analysis``): ``python -m repro_torch.analysis`` (the schedule
+   sweep and the trace wire lint on a fake 2 x 4 world) and ``--spmd``
+   (the SPMD lint of every engine, the compressed sync, the DP step and
+   the serve paths, every rank traced) in processes of their own, both
+   clean; the protocol sweep's first three scopes at their state floors;
+   minicpm-2b-4l's gradient tree synced at world size 1 on the card
+   (int8, int4, int4 + EF) under the SPMD lint, on the kernel route and
+   the plain route: the same clean report, two transport regions with
+   named operands a bucket, the kernels launched once a bucket on the
+   kernel route.  The seconds of each part are on the phase's line.
 
 Then a line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits non-zero
@@ -3283,6 +3294,180 @@ def phase_dryrun(smi, cfg=MINICPM_2B_4L, device="cuda",
             for k in ("quantize_pack", "unpack_dequantize")}
 
 
+# ---------------------------------------------------------------------------
+# the proof chain's sweeps and the SPMD lint (phase analysis)
+# ---------------------------------------------------------------------------
+
+# the compressed syncs linted at world size 1: (bits, error feedback)
+ANALYSIS_SYNCS = ((8, False), (4, False), (4, True))
+
+
+def _analysis_start() -> list:
+    """``python -m repro_torch.analysis`` (the schedule sweep and the trace
+    wire lint) and ``--spmd``, one process each (host work: no card,
+    ``CUDA_VISIBLE_DEVICES`` empty), both at once; tables into
+    ``chiprun_out/``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    procs = []
+    for name, flags in (("schedules", []), ("spmd", ["--spmd"])):
+        cmd = [sys.executable, "-m", "repro_torch.analysis", *flags,
+               "--json", str(out / f"analysis_torch_{name}.json")]
+        procs.append((name, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def _analysis_finish(procs) -> dict:
+    """Each sweep's violations and seconds (the sweep's own, in its
+    process); fails if a process fails.  Every process is ended on the
+    way out."""
+    rows = {}
+    try:
+        for name, p in procs:
+            out, err = p.communicate(timeout=600)
+            if p.returncode:
+                raise AssertionError(
+                    f"python -m repro_torch.analysis ({name}) exited "
+                    f"{p.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
+            table = json.loads((ROOT / "chiprun_out"
+                                / f"analysis_torch_{name}.json").read_text())
+            parts = [k for k in ("schedule_verification", "hlo_lint",
+                                 "spmd_lint") if k in table]
+            rows[name] = {"ok": table["ok"],
+                          "violations": {k: table[k]["violations"]
+                                         for k in parts},
+                          "seconds": {k: table[k]["seconds"] for k in parts}}
+            if name == "spmd":
+                rows[name]["cells"] = table["spmd_lint"]["cells"]
+    finally:
+        _stop([p for _, p in procs])
+    return rows
+
+
+def _lint_world1(grads, bits, ef, route):
+    """The compressed sync of ``grads`` at world size 1, traced by the
+    SPMD lint on ``grads``' device: the report's row, the transport
+    regions (all, and with named operands), the plan's buckets and the
+    kernels' launches."""
+    from repro_torch import tree as tree_util
+    from repro_torch.analysis import spmd_lint
+    from repro_torch.core import CommContext, grad_sync
+
+    policy = CommPolicy(algorithm="nap", mean=True, compress_bits=bits,
+                        error_feedback=ef, transport_impl=route)
+
+    def sync(topo, grads):
+        ctx = CommContext(topo, policy)
+        plan = grad_sync.plan_for_tree(grads, cfg=policy, topology=topo)
+        ef_state = (tree_util.tree_map(torch.zeros_like, grads) if ef
+                    else None)
+        return grad_sync.sync_with_context(grads, ctx, plan=plan,
+                                           ef_state=ef_state)
+
+    _reset_launches()
+    traces = spmd_lint.trace_ranks(sync, grads, n_nodes=1, ppn=1)
+    launches = dict(transport.LAUNCHES)
+    rep = spmd_lint.lint_ranks(traces, label=f"grad_sync[bits={bits},"
+                               f"ef={int(ef)}]@1x1")
+    regions = traces[0].regions
+    transport_regions = [r for r in regions if r[0].startswith("transport.")]
+    from repro_torch.core import Topology
+    buckets = len(grad_sync.plan_for_tree(
+        grads, cfg=policy, topology=Topology.of(1, 1)).buckets)
+    return {"row": rep.to_row(), "transport_regions": len(transport_regions),
+            "with_operands": sum(1 for _, has in transport_regions if has),
+            "buckets": buckets, "launches": launches}
+
+
+def phase_analysis(smi, cfg=MINICPM_2B_4L, device="cuda") -> dict:
+    """The proof chain of ``repro_torch.analysis`` on the card's machine.
+
+    1. ``python -m repro_torch.analysis`` (the schedule sweep over every
+       engine and grid, and the trace wire lint of the compressed
+       fused-bucket sync as every rank of a fake 2 x 4 world) and
+       ``--spmd`` (the SPMD lint of every engine on 2x2 / 3x2 / 2x4 in
+       float32 and bfloat16, the compressed sync, the DP train step, the
+       serve decode loop and the decode slice), each in its own process,
+       started first; both must exit 0 with no violation.
+    2. Meanwhile, here: the protocol sweep's first three scopes (230 /
+       3,591 / 9,890 states at least) and the layer-0 link.
+    3. The compressed sync of ``cfg``'s gradient tree (seeded, on the
+       card) at world size 1, int8, int4 and int4 + error feedback, traced
+       by the SPMD lint once on the kernel route and once on the plain
+       route: the same report on both, no violation, two transport
+       regions with named operands a bucket; the kernel route launches
+       each kernel once a bucket, the plain route none.
+
+    The seconds of each part go on the phase's line.  A CPU rehearsal
+    (``device="cpu"``, a reduced ``cfg``) skips the kernels' counts."""
+    from repro_torch import tree as tree_util
+    from repro_torch.analysis import __main__ as driver
+    from repro_torch.analysis import protocol_check as pc
+    from repro_torch.models import init_params
+
+    t_phase = time.perf_counter()
+    procs = _analysis_start()
+    try:
+        t0 = time.perf_counter()
+        protocol = driver.run_protocol_sweep(pc.PROTOCOL_GRID[:3])
+        protocol_s = time.perf_counter() - t0
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        grads = tree_util.tree_map(
+            lambda t: torch.randn(t.shape, dtype=t.dtype, device=device,
+                                  generator=gen),
+            init_params(cfg, device="meta"))
+        world1 = {}
+        for bits, ef in ANALYSIS_SYNCS:
+            for route in ("auto", "plain"):
+                t0 = time.perf_counter()
+                row = _lint_world1(grads, bits, ef, route)
+                row["seconds"] = time.perf_counter() - t0
+                world1[f"int{bits}{'+ef' if ef else ''}/{route}"] = row
+        del grads
+    except BaseException:
+        _stop([p for _, p in procs])
+        raise
+    sweeps = _analysis_finish(procs)
+    emit({"phase": "analysis", "nvidia_smi": smi, "config": cfg.name,
+          "sweeps": sweeps,
+          "protocol": {"states": [r["states"] for r in protocol["rows"]],
+                       "floors": [r["min_states"] for r in protocol["rows"]],
+                       "violations": protocol["violations"],
+                       "scope_s": [r["seconds"] for r in protocol["rows"]],
+                       "b_max": protocol["layer2_link"]["b_max"],
+                       "seconds": protocol_s},
+          "world1": world1, "phase_s": time.perf_counter() - t_phase})
+    bad = [f"{name}: {row}" for name, row in sweeps.items() if not row["ok"]]
+    if protocol["violations"]:
+        bad.append(f"protocol: {protocol['violations']} violation(s)")
+    for bits, ef in ANALYSIS_SYNCS:
+        key = f"int{bits}{'+ef' if ef else ''}"
+        a, p = world1[f"{key}/auto"], world1[f"{key}/plain"]
+        if a["row"] != p["row"]:
+            bad.append(f"{key}: the kernel and plain routes lint differently")
+        if not a["row"]["ok"]:
+            bad.append(f"{key}: {a['row']['violations']}")
+        for route, r in (("auto", a), ("plain", p)):
+            if r["with_operands"] != 2 * r["buckets"] or (
+                    r["transport_regions"] != r["with_operands"]):
+                bad.append(f"{key}/{route}: {r['with_operands']} transport "
+                           f"regions with operands for {r['buckets']} "
+                           "buckets")
+        if device != "cpu" and a["launches"] != {
+                "quantize_pack": a["buckets"],
+                "unpack_dequantize": a["buckets"]}:
+            bad.append(f"{key}: the kernel route launched {a['launches']}")
+        if any(p["launches"].values()):
+            bad.append(f"{key}: the plain route launched a kernel")
+    if bad:
+        raise AssertionError("phase analysis: " + "; ".join(bad))
+    return sweeps
+
+
 def _shape_of(sizes):
     from repro_torch.configs.base import ShapeConfig
 
@@ -3334,6 +3519,7 @@ def main() -> None:
     mesh_launches = phase_mesh(smi)
     mesh_serve_launches = phase_mesh_serve(smi)
     dryrun_launches = phase_dryrun(smi)
+    phase_analysis(smi)
     t4 = k["timing"][4]
     replaces = {"quantize_pack": "src/repro/kernels/transport.py:158",
                 "unpack_dequantize": "src/repro/kernels/transport.py:222"}

@@ -232,27 +232,33 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def _ppermute(v: torch.Tensor, pairs, rank: int,
-              peers=None) -> torch.Tensor | None:
+def _ppermute(v: torch.Tensor, pairs, groups) -> torch.Tensor | None:
     """One permutation round over the grid: every ``(src, dst)`` pair of
-    grid indices moves ``src``'s value to ``dst`` (``peers`` maps a grid
-    index to its world rank, :class:`~repro_torch.core.comm.RankGroups`).
-    Returns what this rank received (``None`` when it is no
-    destination)."""
+    grid indices moves ``src``'s value to ``dst``.  ``groups`` is this
+    rank's :class:`~repro_torch.core.comm.RankGroups`: its ``peers`` map a
+    grid index to its world rank, and its ``rounds`` (the SPMD lint's
+    fake world only) run the round in place of ``batch_isend_irecv`` on
+    the default group.  Returns what this rank received (``None`` when it
+    is no destination)."""
+    rank = groups.rank
     flat = v.contiguous().reshape(-1)
-    ops, recv = [], None
-    world = (lambda i: i) if peers is None else peers.__getitem__
+    ops, recv = [], None  # (isend | irecv, tensor, peer grid index)
     for src, dst in pairs:
         if src == rank and dst == rank:
             recv = flat.clone()
             continue
         if src == rank:
-            ops.append(dist.P2POp(dist.isend, flat, world(dst)))
+            ops.append((dist.isend, flat, dst))
         if dst == rank:
             recv = torch.empty_like(flat)
-            ops.append(dist.P2POp(dist.irecv, recv, world(src)))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
+            ops.append((dist.irecv, recv, src))
+    if groups.rounds is not None:
+        groups.rounds(flat, ops)
+    elif ops:
+        world = ((lambda i: i) if groups.peers is None
+                 else groups.peers.__getitem__)
+        p2p = [dist.P2POp(fn, t, world(peer)) for fn, t, peer in ops]
+        for req in dist.batch_isend_irecv(p2p):
             req.wait()
     return None if recv is None else recv.reshape(v.shape)
 
@@ -283,7 +289,7 @@ def nap_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
     ):
         acc = v if smask[rank] else torch.full_like(v, ident)
         for rnd, rmask in zip(step.rounds, rmasks):
-            recv = _ppermute(v, rnd, rank, groups.peers)
+            recv = _ppermute(v, rnd, groups)
             if rmask[rank]:
                 acc = fold(acc, recv)
         v = _all_reduce(acc, groups.intra, op)
@@ -295,16 +301,15 @@ def nap_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
 # ---------------------------------------------------------------------------
 
 
-def _run_p2p_schedule(x: torch.Tensor, sched, rank: int, op: str,
-                      peers=None):
+def _run_p2p_schedule(x: torch.Tensor, sched, groups, op: str):
     """Execute a :class:`napalg.P2PSchedule`: one ``batch_isend_irecv``
     round per step over the world group; a receiving rank folds the
     payload in (``combine``) or takes it."""
     fold = _f32_fold(_OPS[op][0], op, x.dtype)
     v = x
     for step, rmask in zip(sched.steps, napalg.p2p_recv_masks(sched)):
-        recv = _ppermute(v, step.pairs, rank, peers)
-        if rmask[rank]:
+        recv = _ppermute(v, step.pairs, groups)
+        if rmask[groups.rank]:
             v = fold(v, recv) if step.combine else recv
     return v
 
@@ -318,7 +323,7 @@ def rd_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
     step, the duplicate traffic NAP removes."""
     groups = topology.require_groups()
     sched = napalg.build_rd_schedule(topology.n_nodes, topology.ppn)
-    return _run_p2p_schedule(x, sched, groups.rank, op, groups.peers)
+    return _run_p2p_schedule(x, sched, groups, op)
 
 
 def smp_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
@@ -328,7 +333,7 @@ def smp_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
     binomial broadcast back.  One active rank per node."""
     groups = topology.require_groups()
     sched = napalg.build_smp_schedule(topology.n_nodes, topology.ppn)
-    return _run_p2p_schedule(x, sched, groups.rank, op, groups.peers)
+    return _run_p2p_schedule(x, sched, groups, op)
 
 
 # ---------------------------------------------------------------------------
@@ -354,12 +359,12 @@ def ring_allreduce(x: torch.Tensor, *, topology, op: str = "sum",
     fwd = [(i, (i + 1) % p) for i in range(p)]
     acc = chunks[idx % p]
     for k in range(p - 1):
-        recv = _ppermute(acc, fwd, idx, groups.peers)
+        recv = _ppermute(acc, fwd, groups)
         acc = fold(recv, chunks[(idx - k - 1) % p])
     chunks[(idx + 1) % p] = acc
     cur = acc
     for k in range(p - 1):
-        cur = _ppermute(cur, fwd, idx, groups.peers)
+        cur = _ppermute(cur, fwd, groups)
         chunks[(idx - k) % p] = cur  # chunk (idx - k - 1) + 1 arrives
     out = chunks.reshape(-1)[:size]
     return out.reshape(x.shape).to(x.dtype)

@@ -21,10 +21,21 @@ The reference's twelve engines are registered under the same names and
 collectives: allreduce ``nap``, ``mla``, ``mla_pipelined``, ``psum`` and
 the baselines ``rd``, ``smp``, ``ring``, ``rabenseifner`` (never
 auto-dispatched); reduce-scatter ``mla_rs`` / ``psum_scatter``; allgather
-``mla_ag`` / ``all_gather``.  :func:`verify_engine` proves an engine's
-schedules with :mod:`repro_torch.analysis.schedule_verifier`.  The
-reference's ``lint_lowering`` (a lint of the JAX lowering) has no port
-yet, nor has its verify-on-register gate.
+``mla_ag`` / ``all_gather``.
+
+Engines are proved by the layers of :mod:`repro_torch.analysis`:
+:func:`verify_engine` runs the schedule verifier (layer 1) over an
+engine's schedules, and :func:`lint_lowering` the SPMD lint (layer 2) over
+the program its ``execute`` runs, traced as every rank of a grid, with
+the inter-node bytes held to the schedule's bound.  (Layer 0, the
+protocol model check, proves the serving control plane; layer 3, the
+trace lint, one rank's issued collectives.)  With
+``REPRO_VERIFY_ON_REGISTER`` set, :func:`register_engine` runs both gates
+before an engine enters the tournament and rolls a failing registration
+back.  The lint makes fake process groups of its own and registers none,
+so inside a live ``torch.distributed`` world (the test suite's gloo
+workers import this module after ``init_process_group``) the gate runs
+the same and leaves the default group as it was.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import os
 import types
 import warnings
 from typing import Callable, NamedTuple
@@ -53,6 +65,7 @@ __all__ = [
     "find_engine",
     "engine_schedule",
     "verify_engine",
+    "lint_lowering",
     "select_engine",
     "CommPolicy",
     "CommContext",
@@ -92,13 +105,18 @@ class RankGroups:
     across nodes (index = node), ``world`` the whole grid (index = rank).
     ``peers`` maps a grid index to its ``torch.distributed`` rank when the
     grid is part of a larger world (a mesh's DP grid at one ``model``
-    index); ``None`` when grid index and rank are one."""
+    index); ``None`` when grid index and rank are one.  ``rounds`` runs a
+    permutation round ``rounds(value, [(isend | irecv, tensor, peer grid
+    index), ...])`` in place of ``batch_isend_irecv`` on the default
+    group: only the SPMD lint's fake world
+    (:mod:`repro_torch.analysis.spmd_lint`) sets it."""
 
     rank: int
     intra: Group
     inter: Group
     world: Group
     peers: tuple[int, ...] | None = None
+    rounds: Callable | None = None
 
 
 # process group name -> the partition of the world its group belongs to
@@ -509,7 +527,7 @@ def register_engine(
     *,
     collective: str = "allreduce",
     ops: frozenset[str] | set[str] | None = frozenset({"sum"}),
-    execute: Callable,
+    execute: Callable | None = None,
     cost: Callable | None = None,
     build_schedule: Callable | None = None,
     regime: str = "baseline",
@@ -519,33 +537,86 @@ def register_engine(
     ragged: bool = False,
     pipelined_variant: str | None = None,
     override: bool = False,
-) -> EngineSpec:
-    """Register a collective engine; registration order breaks cost ties."""
+    verify: bool = True,
+):
+    """Register a collective engine; registration order breaks cost ties.
+
+    Usable directly (``execute=`` given: returns the :class:`EngineSpec`)
+    or as a decorator of the execute function (returns it)::
+
+        @register_engine("my_rs", collective="reduce_scatter",
+                         ops={"sum"}, regime="baseline")
+        def _execute(x, *, topology, op="sum"):
+            ...
+
+    **Verify-on-register.**  With ``REPRO_VERIFY_ON_REGISTER`` set in the
+    environment (the test suite sets it), a registration with a schedule
+    builder is first proved by
+    :mod:`repro_torch.analysis.schedule_verifier` over the registration
+    grids (``verify=False`` opts out: exotic schedules with proofs of
+    their own, native lowerings with no schedule).
+
+    **Lint-on-register.**  Under the same flag every registration,
+    ``verify=False`` included, is traced as every rank of the
+    :data:`_LINT_GRIDS` and linted (:func:`lint_lowering`): collective
+    uniformity, axis discipline, numerics flow and byte equality with
+    the schedule.  The lint runs in a fake world of its own, so it needs
+    no process group and leaves the caller's default group (a live gloo
+    or NCCL world) as it was.
+
+    A registration that fails either gate is rolled back out of the
+    registry and raises ``ValueError`` with the violation list.
+    """
     if collective not in _REGISTRY:
         raise ValueError(
             f"unknown collective {collective!r}; one of {COLLECTIVES}"
         )
-    if name in _REGISTRY[collective] and not override:
-        raise ValueError(
-            f"{collective} engine {name!r} is already registered; "
-            "pass override=True to replace it deliberately"
+
+    def _register(execute_fn: Callable) -> EngineSpec:
+        if name in _REGISTRY[collective] and not override:
+            raise ValueError(
+                f"{collective} engine {name!r} is already registered; "
+                "pass override=True to replace it deliberately"
+            )
+        spec = EngineSpec(
+            name=name,
+            collective=collective,
+            execute=execute_fn,
+            cost=cost,
+            build_schedule=build_schedule,
+            ops=frozenset(ops) if ops is not None else None,
+            regime=regime,
+            min_nodes=min_nodes,
+            min_ppn=min_ppn,
+            chunked=chunked,
+            ragged=ragged,
+            pipelined_variant=pipelined_variant,
         )
-    spec = EngineSpec(
-        name=name,
-        collective=collective,
-        execute=execute,
-        cost=cost,
-        build_schedule=build_schedule,
-        ops=frozenset(ops) if ops is not None else None,
-        regime=regime,
-        min_nodes=min_nodes,
-        min_ppn=min_ppn,
-        chunked=chunked,
-        ragged=ragged,
-        pipelined_variant=pipelined_variant,
-    )
-    _REGISTRY[collective][name] = spec
-    return spec
+        previous = _REGISTRY[collective].get(name)
+        _REGISTRY[collective][name] = spec
+        if _verify_on_register_enabled():
+            try:
+                if verify:
+                    _verify_spec_quick(spec)
+                # the lint is not gated on ``verify``: an engine with no
+                # schedule (a native lowering) still has a program to prove
+                _lint_spec_quick(spec)
+            except Exception:
+                if previous is None:
+                    _REGISTRY[collective].pop(name, None)
+                else:
+                    _REGISTRY[collective][name] = previous
+                raise
+        return spec
+
+    if execute is not None:
+        return _register(execute)
+
+    def decorator(execute_fn: Callable) -> Callable:
+        _register(execute_fn)
+        return execute_fn
+
+    return decorator
 
 
 def registered_engines(
@@ -646,17 +717,181 @@ def verify_engine(
     ]
     bad = [r for r in reports if not r.ok]
     if bad and raise_on_violation:
+        raise ValueError(
+            f"engine {name!r} failed static verification:\n"
+            + "\n".join(_violation_lines(bad))
+        )
+    return reports
+
+
+def _verify_on_register_enabled() -> bool:
+    return os.environ.get("REPRO_VERIFY_ON_REGISTER", "").lower() in (
+        "1", "true", "yes",
+    )
+
+
+def _violation_lines(bad) -> list[str]:
+    return [
+        f"  ({r.n_nodes}x{r.ppn}, elems={r.elems}) [{v.rule}] {v.message}"
+        for r in bad
+        for v in r.violations
+    ]
+
+
+def _verify_spec_quick(spec: EngineSpec) -> None:
+    """The verify-on-register gate: sweep the registration grids and
+    raise (so the caller rolls the registry back) on any violation."""
+    from ..analysis import schedule_verifier as _sv
+
+    bad = []
+    for n, ppn in _sv.REGISTER_GRIDS:
+        for elems in (None, 19):
+            r = _sv.verify_spec(
+                spec, n, ppn, elems=elems, chunks=2 if spec.chunked else 1
+            )
+            if not r.ok:
+                bad.append(r)
+    if bad:
+        raise ValueError(
+            f"{spec.collective} engine {spec.name!r} failed static "
+            "verification on registration:\n"
+            + "\n".join(_violation_lines(bad))
+        )
+
+
+#: grids the registration-time lint traces (smaller than the schedule
+#: verifier's REGISTER_GRIDS: tracing every rank costs more than graph
+#: checks, and the rules are generic in the grid's shape)
+_LINT_GRIDS = ((2, 2), (3, 2))
+
+
+def lint_lowering(
+    name: str,
+    topology: Topology | None = None,
+    *,
+    n_nodes: int | None = None,
+    ppn: int | None = None,
+    elems: int | None = None,
+    dtype="float32",
+    op: str = "sum",
+    chunks: int = 1,
+    raise_on_violation: bool = True,
+):
+    """Lint a registered engine's *executed* program on every rank.
+
+    Runs the engine's ``execute`` as each rank of an ``n_nodes x ppn``
+    grid (a ``topology`` or ``n_nodes`` / ``ppn``; default the first of
+    :data:`_LINT_GRIDS`) in the SPMD lint's fake world, which needs no
+    process group, and lints the set of traces
+    (:mod:`repro_torch.analysis.spmd_lint`): collective uniformity,
+    axis discipline, numerics flow, and byte accounting, the maximum
+    over ranks of the inter-node bytes each sends against the bound the
+    engine's *schedule* declares.
+
+    The payload defaults to ``n * ppn * chunks * 4`` elements.  The bound
+    comes from the engine's flags, as in the reference: a non-ragged
+    schedule builder gives the exact ``max_internode_bytes_per_chip``;
+    ragged and chunked engines are held to
+    :meth:`Topology.internode_lower_bound` when ``elems`` divides evenly
+    (the default payload does); engines with no schedule are byte-audited
+    report-only.
+
+    Returns the :class:`~repro_torch.analysis.spmd_lint.SpmdLintReport`;
+    raises ``ValueError`` listing every violation unless
+    ``raise_on_violation=False``.
+    """
+    import torch
+
+    from ..analysis import spmd_lint as _sl
+
+    spec = find_engine(name)
+    if topology is not None:
+        n, p = topology.n_nodes, topology.ppn
+    elif n_nodes is not None and ppn is not None:
+        n, p = int(n_nodes), int(ppn)
+    else:
+        n, p = _LINT_GRIDS[0]
+    if n < spec.min_nodes or p < spec.min_ppn:
+        raise ValueError(
+            f"engine {name!r} needs at least "
+            f"{spec.min_nodes}x{spec.min_ppn}, got {n}x{p}"
+        )
+    eff_chunks = chunks if chunks > 1 else (2 if spec.chunked else 1)
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    dt_name = str(dt).replace("torch.", "")
+    if elems is None:
+        elems = n * p * eff_chunks * 4
+    elems = int(elems)
+
+    if spec.collective == "allgather":
+        shard = -(-(-(-elems // p)) // n)  # ceil(ceil(e/ppn)/n)
+        x = torch.zeros((shard,), dtype=dt)
+
+        def fn(topo, v):
+            return spec.execute(v, topology=topo, elems=elems)
+    elif spec.collective == "reduce_scatter":
+        x = torch.zeros((elems,), dtype=dt)
+
+        def fn(topo, v):
+            return spec.execute(v, topology=topo, op=op)
+    else:
+        x = torch.zeros((elems,), dtype=dt)
+
+        def fn(topo, v):
+            return spec.execute(v, topology=topo, op=op,
+                                pipeline_chunks=eff_chunks)
+
+    declared = None
+    if spec.ragged or spec.chunked:
+        if elems % (n * p * eff_chunks) == 0:
+            declared = (
+                Topology.of(n, p).internode_lower_bound(elems,
+                                                        spec.collective)
+                * dt.itemsize
+            )
+    elif spec.build_schedule is not None:
+        declared = engine_schedule(
+            name, n, p
+        ).max_internode_bytes_per_chip(elems * dt.itemsize)
+
+    report = _sl.lint_traced(
+        fn, x, n_nodes=n, ppn=p,
+        declared_internode_bytes=declared,
+        label=f"{spec.collective}:{name}@{n}x{p}/{dt_name}",
+        params=topology.params if topology is not None else None,
+    )
+    if not report.ok and raise_on_violation:
+        lines = [f"  [{v.rule}] {v.message}" for v in report.violations]
+        raise ValueError(
+            f"engine {name!r} program failed the spmd lint on "
+            f"{n}x{p} ({dt_name}):\n" + "\n".join(lines)
+        )
+    return report
+
+
+def _lint_spec_quick(spec: EngineSpec) -> None:
+    """The lint-on-register gate: lint the engine's program over the lint
+    grids, raising (so the caller rolls the registry back) on any
+    violation.  Runs for every registration, ``verify=False`` included."""
+    bad = []
+    for n, p in _LINT_GRIDS:
+        if n < spec.min_nodes or p < spec.min_ppn:
+            continue
+        r = lint_lowering(
+            spec.name, n_nodes=n, ppn=p, raise_on_violation=False
+        )
+        if not r.ok:
+            bad.append((n, p, r))
+    if bad:
         lines = [
-            f"  ({r.n_nodes}x{r.ppn}, elems={r.elems}) "
-            f"[{v.rule}] {v.message}"
-            for r in bad
+            f"  ({n}x{p}) [{v.rule}] {v.message}"
+            for n, p, r in bad
             for v in r.violations
         ]
         raise ValueError(
-            f"engine {name!r} failed static verification:\n"
-            + "\n".join(lines)
+            f"{spec.collective} engine {spec.name!r} program failed the "
+            "spmd lint on registration:\n" + "\n".join(lines)
         )
-    return reports
 
 
 class Decision(NamedTuple):

@@ -183,9 +183,11 @@ def _compressed_fused_allreduce(
         scales = _wire_scale(flat, offsets, sizes, 0, None, qmax)
         w = transport.quantize_pack(
             flat.reshape(1, E), scales, offsets=offsets, bits=bits, impl=impl,
+            donate_input=not with_err,
         )
         full = transport.unpack_dequantize(
             w, scales, offsets=offsets, bits=bits, cols=E, impl=impl,
+            donate_input=True,
         ).reshape(-1)
         return split(full), scales, (flat - full if with_err else None)
 
@@ -206,9 +208,11 @@ def _compressed_fused_allreduce(
     if g * B != S:
         stripe = torch.cat([stripe, stripe.new_zeros(g * B - S)])
     s1 = _wire_scale(stripe, offsets, sizes, base_stripe, wire_g, qmax)
+    # the stripe is donated only without error feedback, whose path reads
+    # it again (the SPMD lint's alias-donation rule proves it)
     w = transport.quantize_pack(
         stripe.reshape(g, B), s1, offsets=offsets, bits=bits,
-        base=base_stripe, row_stride=B, impl=impl,
+        base=base_stripe, row_stride=B, impl=impl, donate_input=not with_err,
     )
     # ---- RS half: packed all_to_all; every row lands on the same block
     # window (base + t*B, row_stride=0), unpack + exact f32 fold --------
@@ -216,18 +220,18 @@ def _compressed_fused_allreduce(
     block_base = base_stripe + wire_g.index * B
     blk = transport.unpack_dequantize(
         recv, s1, offsets=offsets, bits=bits, cols=B,
-        base=block_base, row_stride=0, impl=impl,
+        base=block_base, row_stride=0, impl=impl, donate_input=True,
     ).sum(dim=0)
     # ---- requantize the reduced fold at its measured bound; AG half ----
     s2 = _wire_scale(blk, offsets, sizes, block_base, wire_g, qmax)
     w2 = transport.quantize_pack(
         blk.reshape(1, B), s2, offsets=offsets, bits=bits,
-        base=block_base, row_stride=0, impl=impl,
+        base=block_base, row_stride=0, impl=impl, donate_input=not with_err,
     )
     gathered = _all_gather(w2[0], wire_g)
     stripe_sum = transport.unpack_dequantize(
         gathered, s2, offsets=offsets, bits=bits, cols=B,
-        base=base_stripe, row_stride=B, impl=impl,
+        base=base_stripe, row_stride=B, impl=impl, donate_input=True,
     ).reshape(-1)[:S]
     # ---- level 1 inverse: rebuild the flat sum inside the node ---------
     full = stripe_sum
@@ -490,13 +494,13 @@ def _compressed_reduce_scatter(flat, scale, ctx: comm.CommContext):
         stripe = torch.cat([stripe, stripe.new_zeros(n * B - S)])
     w = transport.quantize_pack(
         stripe.reshape(n, B), s1, offsets=offsets, bits=bits, base=base,
-        row_stride=B, impl=impl,
+        row_stride=B, impl=impl, donate_input=True,
     )
     recv = _all_to_all(w, groups.inter)
     block_base = base + groups.inter.index * B
     return transport.unpack_dequantize(
         recv, s1, offsets=offsets, bits=bits, cols=B, base=block_base,
-        row_stride=0, impl=impl,
+        row_stride=0, impl=impl, donate_input=True,
     ).sum(dim=0)
 
 

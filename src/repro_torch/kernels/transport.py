@@ -169,6 +169,7 @@ def quantize_pack(
     row_stride: int = 0,
     block: int = DEFAULT_BLOCK,
     impl: str = "auto",
+    donate_input: bool = False,
 ) -> torch.Tensor:
     """Quantize-and-pack ``x`` (R, C) f32 into wire bytes in one pass.
 
@@ -177,12 +178,21 @@ def quantize_pack(
     quantizes to 0.  ``scales`` is the (L,) per-leaf scale vector,
     ``offsets`` the leaf start indices, ``base``/``row_stride`` the
     global-index plumbing (module docstring).
+
+    ``donate_input=True`` declares that the caller is done with ``x``.  It
+    is a declaration only, carried on the kernel region: the SPMD lint's
+    alias-donation rule proves that ``x`` is neither read after the call
+    nor returned (:mod:`repro_torch.analysis.spmd_lint`).  It changes no
+    value and no launch.  Do not set it where the caller still needs
+    ``x`` (the error-feedback path reads its stripe again).
     """
     # a kernel region of the op tracer: x read and the wire written once,
     # on the kernel route and the plain route alike
     with kernel_region("transport.quantize_pack", lambda: x.shape[0] * (
             4 * x.shape[1]
-            + -(-x.shape[1] // block) * block * wire_itemsize(bits))):
+            + -(-x.shape[1] // block) * block * wire_itemsize(bits)),
+            donate="x" if donate_input else None) as region:
+        region.inputs(x=x, scales=scales, bits=bits)
         offsets = tuple(int(o) for o in offsets)
         scales = scales.reshape(-1)
         _check_args(bits, block, scales, offsets)
@@ -194,18 +204,20 @@ def quantize_pack(
         xp = F.pad(x, (0, pad)) if pad else x
         R, Cp = xp.shape
         if not _use_kernel(xp, scales, impl, block):
-            return ref.quantize_pack_ref(
+            out = ref.quantize_pack_ref(
                 xp, scales, offsets=offsets, bits=bits, base=base,
                 row_stride=row_stride, block=block,
             )
-        if xp.data_ptr() % 16:
-            xp = xp.clone()  # the kernel loads x as float4s
-        out_cols = Cp // 2 if bits == 4 else Cp
-        out = torch.empty((R, out_cols), dtype=wire_dtype(bits),
-                          device=xp.device)
-        _launch("repro_quantize_pack", xp, out, scales, offsets, R, Cp, base,
-                row_stride, bits)
-        LAUNCHES["quantize_pack"] += 1
+        else:
+            if xp.data_ptr() % 16:
+                xp = xp.clone()  # the kernel loads x as float4s
+            out_cols = Cp // 2 if bits == 4 else Cp
+            out = torch.empty((R, out_cols), dtype=wire_dtype(bits),
+                              device=xp.device)
+            _launch("repro_quantize_pack", xp, out, scales, offsets, R, Cp,
+                    base, row_stride, bits)
+            LAUNCHES["quantize_pack"] += 1
+        region.output(out)
         return out
 
 
@@ -220,18 +232,22 @@ def unpack_dequantize(
     row_stride: int = 0,
     block: int = DEFAULT_BLOCK,
     impl: str = "auto",
+    donate_input: bool = False,
 ) -> torch.Tensor:
     """Inverse of :func:`quantize_pack`: wire bytes (R, Cw) back to
     (R, cols) f32 values ``q * scale``, the block padding sliced off.
 
     ``base``/``row_stride``/``scales``/``offsets`` describe the global
     indices of the *received* rows: all-to-all-received copies of one
-    block use ``row_stride=0``.
+    block use ``row_stride=0``.  ``donate_input=True`` declares the wire
+    buffer dead after the call (see :func:`quantize_pack`).
     """
     # a kernel region of the op tracer: the wire read and the values
     # written once, on the kernel route and the plain route alike
     with kernel_region("transport.unpack_dequantize",
-                       lambda: wire.numel() + 4 * wire.shape[0] * cols):
+                       lambda: wire.numel() + 4 * wire.shape[0] * cols,
+                       donate="wire" if donate_input else None) as region:
+        region.inputs(wire=wire, scales=scales, bits=bits)
         offsets = tuple(int(o) for o in offsets)
         scales = scales.reshape(-1)
         _check_args(bits, block, scales, offsets)
@@ -251,13 +267,15 @@ def unpack_dequantize(
             out = ref.unpack_dequantize_ref(
                 wire, scales, offsets=offsets, bits=bits, base=base,
                 row_stride=row_stride, block=block,
-            )
-            return out[:, :cols]
-        if wire.data_ptr() % 16:
-            wire = wire.clone()  # the kernel loads 16 wire bytes at a time
-        out = torch.empty((R, (Cw // wblock) * block), dtype=torch.float32,
-                          device=wire.device)
-        _launch("repro_unpack_dequantize", wire, out, scales, offsets, R, Cw,
-                base, row_stride, bits)
-        LAUNCHES["unpack_dequantize"] += 1
-        return out[:, :cols]
+            )[:, :cols]
+        else:
+            if wire.data_ptr() % 16:
+                wire = wire.clone()  # the kernel loads 16 wire bytes a time
+            out = torch.empty((R, (Cw // wblock) * block),
+                              dtype=torch.float32, device=wire.device)
+            _launch("repro_unpack_dequantize", wire, out, scales, offsets,
+                    R, Cw, base, row_stride, bits)
+            LAUNCHES["unpack_dequantize"] += 1
+            out = out[:, :cols]
+        region.output(out)
+        return out

@@ -316,6 +316,9 @@ class _Region:
         self.dtypes: set = set()
         self.seq0 = None
 
+    def inputs(self, **tensors) -> None:
+        pass  # operands are for the SPMD lint's data flow, not the counts
+
     def output(self, *tensors) -> None:
         self.outputs.extend(tensors)
 
@@ -368,7 +371,7 @@ class Tracer(TorchDispatchMode):
             trace_regions.ACTIVE.remove(self)
             self._bwd.clear()
 
-    def region(self, name, io_bytes, flops, kind) -> _Region:
+    def region(self, name, io_bytes, flops, kind, donate=None) -> _Region:
         return _Region(self, name, io_bytes, flops, kind)
 
     # -- dispatch ------------------------------------------------------------

@@ -22,6 +22,14 @@ importing the launch package.
 evaluated only while a tracer is active.  With no tracer active,
 :func:`kernel_region` is one module-level check and returns a shared
 no-op context.
+
+A kernel region may also name its operands, for the SPMD lint
+(:mod:`repro_torch.analysis.spmd_lint`), which follows data through it
+as one node: ``region.inputs(x=..., scales=..., bits=...)`` names the
+tensors it reads (and any plain attributes), ``region.output(...)`` the ones it returns, and ``donate=`` the
+input the caller is done with (its buffer may be reused: it must not be
+read after the region, nor returned by the traced call).  The op counter
+of :mod:`repro_torch.launch.trace_analysis` ignores both.
 """
 
 from __future__ import annotations
@@ -41,6 +49,9 @@ class _NoRegion:
     def __exit__(self, *exc):
         return False
 
+    def inputs(self, **tensors) -> None:
+        pass
+
     def output(self, *tensors) -> None:
         pass
 
@@ -48,11 +59,13 @@ class _NoRegion:
 _NO_REGION = _NoRegion()
 
 
-def kernel_region(name: str, io_bytes=0, flops=0, *, kind: str = "kernel"):
+def kernel_region(name: str, io_bytes=0, flops=0, *, kind: str = "kernel",
+                  donate: str | None = None):
     """A context charging ``name``'s declared work to the active tracer
     (module docstring).  Inside an ``attn`` / ``timescan`` region, call
     ``region.output(*tensors)`` on its results so that their backward is
-    attributed to it too."""
+    attributed to it too.  ``donate`` names the input (of
+    ``region.inputs``) whose buffer the caller gives up."""
     if not ACTIVE:
         return _NO_REGION
-    return ACTIVE[-1].region(name, io_bytes, flops, kind)
+    return ACTIVE[-1].region(name, io_bytes, flops, kind, donate)

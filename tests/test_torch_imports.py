@@ -112,6 +112,13 @@ def test_guard_sees_the_dry_run_modules():
         assert port / rel in PORT_FILES, rel
 
 
+def test_guard_sees_the_analysis_driver_modules():
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("analysis/spmd_lint.py", "analysis/__main__.py",
+                "analysis/__init__.py", "core/comm.py"):
+        assert port / rel in PORT_FILES, rel
+
+
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_launch_serve_runs_every_arch_on_cpu(arch, capsys):
     launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
