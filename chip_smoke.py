@@ -229,6 +229,22 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    the plain route: the same clean report, two transport regions with
    named operands a bucket, the kernels launched once a bucket on the
    kernel route.  The seconds of each part are on the phase's line.
+21. ``examples``: the drivers of ``repro_torch.examples``, each as its own
+   process (``python -m repro_torch.examples.<name>``, through its
+   launcher: one rank on the card over NCCL at 1x1) with ``--report``
+   files under ``chiprun_out/``: ``quickstart`` (every engine returns the
+   input, no permutation round), ``nap_gradient_sync`` (psum bitwise equal
+   to nap: at one rank both are the identity;
+   ms a step of each, the median of steps 2-5), ``train_lm`` in its main
+   mode at its defaults (LM_100M at its widths, float32, 200 steps of 8 x
+   256, a crash at 120 and a resume: the resume step, first and last loss,
+   ms a step as the median after each loop's first, tokens/s, peak
+   memory), ``train_lm --compressed-smoke`` (8 steps each of int8 and
+   int4 + EF on ``reduced(LM_100M)``: each transport kernel launched once
+   a bucket a step, counted in the example's process from zero; then the
+   same on the plain transport, no launch, losses bitwise equal), and
+   ``serve_decode`` (seconds per arch).  Each process's seconds are on
+   the phase's line.
 
 Then a line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits non-zero
@@ -3468,6 +3484,113 @@ def phase_analysis(smi, cfg=MINICPM_2B_4L, device="cuda") -> dict:
     return sweeps
 
 
+# the examples' processes: (tag, module, flags); the main mode of
+# train_lm at its defaults (200 steps)
+EXAMPLES = (
+    ("quickstart", "quickstart", ["--grid", "1x1"]),
+    ("nap_gradient_sync", "nap_gradient_sync", ["--grid", "1x1"]),
+    ("train_lm", "train_lm", []),
+    ("compressed", "train_lm", ["--compressed-smoke", "--grid", "1x1"]),
+    ("compressed_plain", "train_lm",
+     ["--compressed-smoke", "--grid", "1x1", "--transport", "plain"]),
+    ("serve_decode", "serve_decode", []),
+)
+
+
+def _run_example(tag, module, flags, timeout=600) -> dict:
+    """``python -m repro_torch.examples.<module> <flags> --report <file>``
+    in a session of its own (its ranks with it, ended on a timeout); its
+    report with the process's seconds.  Fails if it exits non-zero."""
+    report = ROOT / "chiprun_out" / f"example_{tag}.json"
+    report.parent.mkdir(exist_ok=True)
+    report.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    p = subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{module}", *flags,
+         "--report", str(report)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, 9)
+            p.wait()
+    if p.returncode:
+        raise AssertionError(f"example {tag} exited {p.returncode}:\n"
+                             f"{out[-3000:]}\n{err[-3000:]}")
+    rep = json.loads(report.read_text())
+    rep["process_s"] = time.perf_counter() - t0
+    return rep
+
+
+def phase_examples(smi) -> dict:
+    """The drivers of ``repro_torch.examples`` on the card (module
+    docstring, phase 21).  Returns the compressed smoke's transport
+    launches on the kernel route."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    reps = {tag: _run_example(tag, module, flags)
+            for tag, module, flags in EXAMPLES}
+    bad = []
+    rows = reps["quickstart"]["rows"]
+    for algo, row in rows.items():
+        if row["result"] != row["expected"] or row["rounds"] != 0:
+            bad.append(f"quickstart {algo} at 1x1: {row}")
+    nap = reps["nap_gradient_sync"]
+    if nap["rank0"]["psum"]["losses"] != nap["rank0"]["nap"]["losses"]:
+        bad.append("nap_gradient_sync at 1x1: psum and nap losses differ")
+    lm = {k: v for k, v in reps["train_lm"].items() if k != "example"}
+    if not (lm["resumed_at"] > 0
+            and lm["last_loss"] < lm["first_loss"] - 0.5):
+        bad.append(f"train_lm: {lm}")
+    kern, plain = reps["compressed"]["rank0"], reps["compressed_plain"][
+        "rank0"]
+    launches = {"quantize_pack": 0, "unpack_dequantize": 0}
+    for label, row in kern.items():
+        once = row["buckets"] * len(row["losses"])
+        if row["launches"] != {"quantize_pack": once,
+                               "unpack_dequantize": once}:
+            bad.append(f"compressed {label}: launches {row['launches']} for "
+                       f"{row['buckets']} buckets x {len(row['losses'])} "
+                       "steps")
+        for k, v in row["launches"].items():
+            launches[k] += v
+        if any(plain[label]["launches"].values()):
+            bad.append(f"compressed {label}: the plain route launched "
+                       f"{plain[label]['launches']}")
+        if row["losses"] != plain[label]["losses"]:
+            bad.append(f"compressed {label}: kernel and plain losses differ")
+    emit({"phase": "examples", "nvidia_smi": smi,
+          "quickstart": rows,
+          "nap_gradient_sync": {
+              "ms_per_step": nap["ms_per_step"],
+              "losses": {a: nap["rank0"][a]["losses"]
+                         for a in ("psum", "nap")},
+              "nap_rounds": nap["rank0"]["nap_rounds"],
+              "nap_all_reduces": nap["rank0"]["nap_all_reduces"],
+              "buckets": nap["rank0"]["buckets"]},
+          "train_lm": lm,
+          "compressed": {label: {
+              "losses": row["losses"], "buckets": row["buckets"],
+              "launches": row["launches"],
+              "ms_per_step": statistics.median(row["ms"][1:]),
+              "plain_ms_per_step": statistics.median(
+                  plain[label]["ms"][1:]),
+              "losses_bitwise_equal_plain":
+                  row["losses"] == plain[label]["losses"]}
+              for label, row in kern.items()},
+          "serve_decode_s": {arch: row["seconds"] for arch, row in
+                             reps["serve_decode"]["archs"].items()},
+          "process_s": {tag: rep["process_s"] for tag, rep in reps.items()},
+          "phase_s": time.perf_counter() - t_phase})
+    if bad:
+        raise AssertionError("phase examples: " + "; ".join(bad))
+    return launches
+
+
 def _shape_of(sizes):
     from repro_torch.configs.base import ShapeConfig
 
@@ -3520,6 +3643,7 @@ def main() -> None:
     mesh_serve_launches = phase_mesh_serve(smi)
     dryrun_launches = phase_dryrun(smi)
     phase_analysis(smi)
+    example_launches = phase_examples(smi)
     t4 = k["timing"][4]
     replaces = {"quantize_pack": "src/repro/kernels/transport.py:158",
                 "unpack_dequantize": "src/repro/kernels/transport.py:222"}
@@ -3543,6 +3667,9 @@ def main() -> None:
          "launches_mesh_serve": mesh_serve_launches[name],
          # the counted int4+EF DP step on the kernel route (phase dryrun)
          "launches_dryrun": dryrun_launches[name],
+         # train_lm --compressed-smoke, int8 and int4+EF at 1x1, in the
+         # example's own process (phase examples)
+         "launches_examples": example_launches[name],
          "max_abs_err": k["max_abs_err"],
          "ms": t4[name][0], "plain_ms": t4[name][1],
          "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],

@@ -77,6 +77,8 @@ __all__ = [
     "hierarchical_allreduce",
     "ALL_OPS",
     "MLA_OPS",
+    "ROUNDS",
+    "reset_round_count",
 ]
 
 # op registry: (pairwise fold, torch.distributed reduce op)
@@ -94,6 +96,17 @@ _AXIS_REDUCERS: dict[str, Callable] = {
     "max": lambda t: t.amax(dim=0),
     "min": lambda t: t.amin(dim=0),
 }
+
+#: permutation rounds this process has issued, one per ``_ppermute`` call
+#: (a rank with nothing to move in a round counts it too): the
+#: counterpart of the reference's ``collective-permute`` count in a
+#: compiled program
+ROUNDS: dict[str, int] = {"ppermute": 0}
+
+
+def reset_round_count() -> None:
+    ROUNDS["ppermute"] = 0
+
 
 # torch 2.13 renames the tensor-form collectives; older releases have only
 # the old names
@@ -240,6 +253,7 @@ def _ppermute(v: torch.Tensor, pairs, groups) -> torch.Tensor | None:
     fake world only) run the round in place of ``batch_isend_irecv`` on
     the default group.  Returns what this rank received (``None`` when it
     is no destination)."""
+    ROUNDS["ppermute"] += 1
     rank = groups.rank
     flat = v.contiguous().reshape(-1)
     ops, recv = [], None  # (isend | irecv, tensor, peer grid index)

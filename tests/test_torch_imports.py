@@ -119,6 +119,13 @@ def test_guard_sees_the_analysis_driver_modules():
         assert port / rel in PORT_FILES, rel
 
 
+def test_guard_sees_the_example_drivers():
+    examples = ROOT / "src" / "repro_torch" / "examples"
+    for name in ("__init__", "_world", "quickstart", "nap_gradient_sync",
+                 "train_lm", "serve_decode"):
+        assert examples / f"{name}.py" in PORT_FILES, name
+
+
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_launch_serve_runs_every_arch_on_cpu(arch, capsys):
     launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
