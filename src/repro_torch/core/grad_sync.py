@@ -52,7 +52,7 @@ from .collectives import (
     _all_gather, _all_reduce, _all_to_all, _reduce_scatter, nap_allreduce,
 )
 from .. import tree as tree_util
-from ..kernels import transport
+from ..kernels import ref, transport
 
 __all__ = [
     "GradSyncConfig",
@@ -156,10 +156,9 @@ def _compressed_fused_allreduce(
     scales, on the fused transport kernels.
 
     Launches per bucket: one quantize-pack and one unpack-dequantize on a
-    single rank; two of each on more ranks, plus two more unpacks (the
-    error-feedback decodes) with ``with_err`` — the decodes use the same
-    kernel, since on the card nothing on the main path runs the plain
-    version.
+    single rank; two of each on more ranks, with error feedback or
+    without: ``with_err``'s two decodes of this rank's own wire bytes run
+    the plain version (:func:`repro_torch.kernels.ref.unpack_dequantize_ref`).
 
     Returns ``(outs, scales, err)``: per-leaf float32 *sums* in ``parts``
     order, the (L,) hop-1 wire scales, and the flat (E,) per-rank error
@@ -242,15 +241,19 @@ def _compressed_fused_allreduce(
         # this rank's share of the rounding error: the stripe it quantised
         # on hop 1 and the block it requantised on hop 2 (the block lies
         # inside the stripe, so the two add)
-        vhat = transport.unpack_dequantize(
-            w, s1, offsets=offsets, bits=bits, cols=B,
-            base=base_stripe, row_stride=B, impl=impl,
-        ).reshape(-1)
+        # The decodes take the plain version directly, outside the
+        # kernel's region: error feedback adds no launch and no transport
+        # region (the reference pins ``impl="xla"`` here).  The kernel is
+        # bit-identical to it, so the residual is the same either way.
+        vhat = ref.unpack_dequantize_ref(
+            w, s1, offsets=offsets, bits=bits, base=base_stripe,
+            row_stride=B,
+        )[:, :B].reshape(-1)
         e1 = (stripe - vhat)[:S]
-        blkhat = transport.unpack_dequantize(
-            w2, s2, offsets=offsets, bits=bits, cols=B,
-            base=block_base, row_stride=0, impl=impl,
-        )[0]
+        blkhat = ref.unpack_dequantize_ref(
+            w2, s2, offsets=offsets, bits=bits, base=block_base,
+            row_stride=0,
+        )[0, :B]
         # padded scratch: the last stripe's block window may run past
         # pre*S (block g*B > S); the overhang is all-zero padding
         P = (pre - 1) * S + g * B

@@ -4,9 +4,9 @@ The port of ``repro/core/perf_model.py``: the postal model (Eq 1), the
 max-rate message cost (Eq 3), recursive doubling (Eq 4, also the ``psum``
 fallback's price), SMP (Eq 5), NAP (Eq 6), the MLA, compressed-MLA and
 pipelined-MLA costs, the striped and flat reduce-scatter / allgather
-costs, the NAP<->MLA crossover, the model-optimal pipeline depth and the
-model-optimal grad-sync bucket size.  (``MachineParams.fit``, which fits
-the constants to measured message times, is not ported.)
+costs, the NAP<->MLA crossover, the model-optimal pipeline depth, the
+model-optimal grad-sync bucket size, and :meth:`MachineParams.fit`, which
+fits the inter-node constants to measured message times.
 
 The machine constants are the JAX package's own (:data:`TPU_V5E_POD` is
 its default, :data:`BLUE_WATERS` the paper's), kept so that the port plans

@@ -96,19 +96,27 @@ def world_grid(device=None, grid=None, *, cpu_grid=CPU_GRID
     return dev, (int(n), int(ppn))
 
 
-def _target(fn) -> str:
-    """``module:qualname`` of a module-level function, importable by a new
-    process (``__main__`` by the name it was run under, ``python -m``)."""
+def _target(fn) -> tuple[str, str | None]:
+    """``(module:qualname, directory)`` of a module-level function, for a
+    new process to import.  ``__main__`` goes by the name it was run
+    under (``python -m``) or, for a script run by its path, by its file's
+    stem.  ``directory`` is where a top-level module lies (a script under
+    ``tools/``, a test module), for the rank to put on its path; ``None``
+    for a module of a package."""
     mod = fn.__module__
+    module = sys.modules[mod]
     if mod == "__main__":
-        spec = getattr(sys.modules["__main__"], "__spec__", None)
-        if spec is None:
-            raise ValueError("launch a function of an importable module "
-                             "(run the example with python -m)")
-        mod = spec.name
+        spec = getattr(module, "__spec__", None)
+        if spec is None and not getattr(module, "__file__", None):
+            raise ValueError("launch a function of an importable module or "
+                             "script")
+        mod = spec.name if spec is not None else Path(module.__file__).stem
     if "<locals>" in fn.__qualname__:
         raise ValueError(f"{fn.__qualname__} is not a module-level function")
-    return f"{mod}:{fn.__qualname__}"
+    where = None
+    if "." not in mod and getattr(module, "__file__", None):
+        where = str(Path(module.__file__).resolve().parent)
+    return f"{mod}:{fn.__qualname__}", where
 
 
 def _free_port() -> int:
@@ -135,9 +143,10 @@ def launch(fn, *, device=None, grid=None, cpu_grid=CPU_GRID,
            timeout: float = 900.0, **kwargs) -> list:
     """Run ``fn(rank, topology, device, **kwargs)`` in one process per rank
     and return each rank's value, in rank order.  ``fn`` is a module-level
-    function; ``kwargs`` and the values are pickled (tensors too).  Rank 0
-    prints; the other ranks' standard output is dropped, their errors are
-    not."""
+    function (of a package, or of a script or module that its directory
+    makes importable); ``kwargs`` and the values are pickled (tensors
+    too).  Rank 0 prints; the other ranks' standard output is dropped,
+    their errors are not."""
     dev, (n, ppn) = world_grid(device, grid, cpu_grid=cpu_grid)
     if dev.type == "cuda":
         from ..kernels import transport
@@ -150,7 +159,8 @@ def launch(fn, *, device=None, grid=None, cpu_grid=CPU_GRID,
         env["OMP_NUM_THREADS"] = "1"
     with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as tmp:
         spec = Path(tmp) / "spec.pt"
-        torch.save({"target": _target(fn), "grid": (n, ppn),
+        target, where = _target(fn)
+        torch.save({"target": target, "path": where, "grid": (n, ppn),
                     "device": dev.type, "port": _free_port(),
                     "timeout": timeout, "kwargs": kwargs}, spec)
         sys.stdout.flush()
@@ -193,6 +203,8 @@ def _rank_main(spec_path: str, rank: int) -> None:
         timeout=datetime.timedelta(seconds=spec["timeout"]), **extra)
     dist.all_reduce(torch.zeros(1, device=device))
     mod, name = spec["target"].split(":")
+    if spec["path"] is not None:
+        sys.path.insert(0, spec["path"])
     fn = importlib.import_module(mod)
     for part in name.split("."):
         fn = getattr(fn, part)

@@ -1288,7 +1288,7 @@ def _uneven_lint(bits, ef):
                                         payload_elems=smallest, ppn=2),
         "groups": tl.lint_replica_groups(trace, num_devices=world),
         "counts": tl.lint_collective_counts(trace, {
-            "transport": (6 if ef else 4) * step.plan.num_buckets}),
+            "transport": 4 * step.plan.num_buckets}),
         "stable": tl.lint_stable_trace(step, state, data.batch(1, "cpu")),
     }
     launches = analyze_trace(trace).kernel_launches

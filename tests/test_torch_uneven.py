@@ -204,5 +204,5 @@ def test_dp_step_trace_lint_clean(world, bits, ef):
             assert msgs == [], f"rank {r} {rule}: {msgs}"
         buckets = int(out[f"{tag}_buckets"])
         assert buckets >= 1
-        assert int(out[f"{tag}_launches"]) == (6 if ef else 4) * buckets
+        assert int(out[f"{tag}_launches"]) == 4 * buckets
         assert wire in set(out[f"{tag}_wire_dtypes"])

@@ -92,6 +92,8 @@ def _err(got: np.ndarray, want: np.ndarray) -> float:
 
 
 def with_capacity(cfg, factor: float):
+    if cfg.moe is None:
+        return cfg
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=factor))
 
