@@ -17,6 +17,13 @@ so the node-aware small-message allreduce is paid per token.
   tokens, reroute on :class:`repro_torch.runtime.fault.ReplicaHealth`
   straggler signals, re-planning on replica loss.
 
+With a multi-rank ``ctx`` every rank of the serving group runs the same
+scheduler and router and must make the same calls in the same order.
+Feed :meth:`Router.observe_step` a duration the ranks agree on (each
+rank's step time maxed over the group): a rank's own host clock can
+degrade a replica on one rank and not on another, and the ranks' engine
+steps, and so their collectives, then part ways.
+
 One replica, continuous batching (``device="cpu"`` to run without a card)::
 
     from repro_torch.configs import MINICPM_2B, reduced

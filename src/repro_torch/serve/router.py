@@ -137,7 +137,17 @@ class Router:
     def observe_step(self, replica: int, step: int, duration: float) -> bool:
         """Feed one decode-slice wall-clock for ``replica``; on a
         health transition to degraded, reroute its queued requests.
-        Returns the replica's post-update health."""
+        Returns the replica's post-update health.
+
+        On a serving group of more than one process (every rank runs this
+        router and the replicas' tensor-parallel steps), feed a
+        ``duration`` that every rank agrees on, e.g. each rank's step time
+        maxed over the group (``ctx.allreduce(t, op="max",
+        algorithm="psum")``).  Each rank's own host clock differs: the
+        ranks would then disagree on a replica's health, reroute
+        differently, run different engine steps, and the next collective
+        would hang.  (The reference has one controller and never meets
+        this.)"""
         was = self.health[replica].healthy
         ok = self.health[replica].record(step, duration)
         if was and not ok:

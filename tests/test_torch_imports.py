@@ -69,6 +69,11 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def test_guard_sees_the_four_card_tools():
+    for name in ("mesh_serve_4gpu", "mesh_train_4gpu", "serve_tp_4gpu"):
+        assert ROOT / "tools" / f"{name}.py" in PORT_FILES, name
+
+
 def test_guard_sees_the_serving_modules():
     port = ROOT / "src" / "repro_torch"
     for rel in ("serve/__init__.py", "serve/scheduler.py", "serve/router.py",

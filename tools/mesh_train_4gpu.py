@@ -73,6 +73,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -162,10 +163,13 @@ class Report:
 
 
 def config(spec: dict):
-    from repro_torch.configs import ARCHS, MINICPM_2B_4L, MINICPM_2B_8L
-    from repro_torch.configs import reduced
+    """``spec["config"]`` by name (an arch, a depth cut of minicpm-2b or a
+    configuration of ``CHIP_FAMILIES``), ``reduced()`` if asked."""
+    from repro_torch.configs import ARCHS, CHIP_FAMILIES, MINICPM_2B_4L
+    from repro_torch.configs import MINICPM_2B_8L, reduced
 
-    named = {c.name: c for c in (MINICPM_2B_4L, MINICPM_2B_8L)}
+    named = {c.name: c for c in (MINICPM_2B_4L, MINICPM_2B_8L,
+                                 *CHIP_FAMILIES.values())}
     cfg = named.get(spec["config"]) or ARCHS[spec["config"]]
     return reduced(cfg) if spec.get("reduced") else cfg
 
@@ -1266,28 +1270,21 @@ def section_full_width(rank, device, sizes, rep: Report, tmp: Path) -> None:
 SECTIONS = ("engines", "sync", "grad_sync_mesh", "train_mesh", "full_width")
 
 
-def rank_main(rank, topology, device, *, sizes, tmp) -> dict:
-    """One rank: every section in turn.  Returns this rank's failed
-    checks and, on rank 0, the rows it printed."""
+def run_sections(rep: Report, dev, calls: dict) -> dict:
+    """Run each section of ``calls`` (name -> a call of no arguments) in
+    turn on this rank; an exception is recorded as a failed check (a
+    missing rule raises on every rank alike) and the next section runs.
+    Returns this rank's failed checks and, on rank 0, the rows it
+    printed."""
     import gc
 
     import torch.distributed as dist
 
-    rep = Report(rank)
-    dev = torch.device(device.type)  # the rank's card is the current one
-    tmp = Path(tmp)
-    fns = {"engines": section_engines, "sync": section_sync,
-           "grad_sync_mesh": section_grad_sync_mesh,
-           "train_mesh": section_train_mesh,
-           "full_width": section_full_width}
-    for name in SECTIONS:
+    for name, call in calls.items():
         t0 = time.perf_counter()
-        fn = fns[name]
-        args = (tmp,) if name in ("train_mesh", "full_width") else ()
         try:
-            fn(rank, dev, sizes, rep, *args)
-        except Exception as e:  # recorded as a failed check, then the next
-            # section: a missing rule raises on every rank alike
+            call()
+        except Exception as e:
             rep.hold(False, f"{name}: {type(e).__name__}: {e}"[:600])
             rep.emit({"section": name, "error": traceback.format_exc()[
                 -3000:]})
@@ -1296,8 +1293,24 @@ def rank_main(rank, topology, device, *, sizes, tmp) -> dict:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         rep.emit({"section": name, "s": time.perf_counter() - t0,
-                  "failed_so_far": len(rep.bad)})
+                  "failed_so_far": len(rep.bad), "links": LINKS})
     return {"bad": rep.bad, "rows": rep.rows}
+
+
+def rank_main(rank, topology, device, *, sizes, tmp) -> dict:
+    """One rank: every section in turn (:func:`run_sections`)."""
+    rep = Report(rank)
+    dev = torch.device(device.type)  # the rank's card is the current one
+    tmp = Path(tmp)
+    fns = {"engines": section_engines, "sync": section_sync,
+           "grad_sync_mesh": section_grad_sync_mesh,
+           "train_mesh": section_train_mesh,
+           "full_width": section_full_width}
+    return run_sections(rep, dev, {
+        name: functools.partial(
+            fns[name], rank, dev, sizes, rep,
+            *((tmp,) if name in ("train_mesh", "full_width") else ()))
+        for name in SECTIONS})
 
 
 def run(device=None) -> list:
@@ -1317,6 +1330,25 @@ def run(device=None) -> list:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def conclude(ranks: list, dev, sections, t0: float) -> None:
+    """Rank 0's last lines: on the cards their name and power limit, then
+    ``{"ok": ...}`` over every rank's failed checks; exits 1 if any
+    failed."""
+    bad = [b for r in ranks for b in r["bad"]]
+    if dev.type == "cuda":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip(),
+            flush=True)
+    print(json.dumps({"ok": not bad, "failed": bad,
+                      "sections": list(sections),
+                      "world": math.prod(WORLD_GRID), "device": dev.type,
+                      "s": time.perf_counter() - t0}), flush=True)
+    if bad:
+        raise SystemExit(1)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default=None,
@@ -1332,18 +1364,7 @@ def main(argv=None) -> None:
     except (RuntimeError, TimeoutError) as e:
         print(json.dumps({"ok": False, "error": str(e)}), flush=True)
         raise SystemExit(1)
-    bad = [b for r in ranks for b in r["bad"]]
-    if dev.type == "cuda":
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip(),
-            flush=True)
-    print(json.dumps({"ok": not bad, "failed": bad, "sections": SECTIONS,
-                      "world": math.prod(WORLD_GRID), "device": dev.type,
-                      "s": time.perf_counter() - t0}), flush=True)
-    if bad:
-        raise SystemExit(1)
+    conclude(ranks, dev, SECTIONS, t0)
 
 
 if __name__ == "__main__":
