@@ -1470,6 +1470,66 @@ def phase_collectives_world1() -> None:
     if not all(engines.values()) or len(engines) != 15:
         raise AssertionError(f"an engine changed its input at world size 1 "
                              f"or left the card: {engines}")
+    phase_card_constants()
+
+
+# the four-card grids, and the payloads there whose engine the card's
+# constants decide: the tensor-parallel logits allreduce of 8 minicpm-2b
+# slots and minicpm-2b-4l's gradient buckets
+CARD_GRIDS = ((2, 2), (4, 1), (1, 4))
+
+
+def card_dispatch_table(params) -> dict:
+    """Per grid of ``CARD_GRIDS`` under ``params`` (planning only): the
+    NAP<->MLA crossover and ``CommContext.dispatch``'s (engine, chunks)
+    for each payload, with the buckets planned under the same
+    constants."""
+    from repro_torch.core import CommContext, Topology, grad_sync
+    from repro_torch.models import init_params
+
+    tree = init_params(MINICPM_2B_4L, device="meta")
+    out = {}
+    for n, ppn in CARD_GRIDS:
+        topo = Topology.of(n, ppn, params=params)
+        sizes = {"tp_logits_8_slots": 8 * MINICPM_2B.vocab_size * 4}
+        for b in grad_sync.plan_for_tree(tree, cfg=CommPolicy(),
+                                         topology=topo).buckets:
+            sizes[f"bucket_{b.dtype}_{b.nbytes}"] = b.nbytes
+        ctx = CommContext(topo)
+        xo = topo.crossover_bytes()
+        out[f"{n}x{ppn}"] = {
+            "crossover_bytes": xo if math.isfinite(xo) else str(xo),
+            "dispatch": {k: [v, *ctx.dispatch(v)] for k, v in sizes.items()}}
+    return out
+
+
+def phase_card_constants() -> None:
+    """The constants an NCCL world's executable topology carries (a world
+    of one on this card, destroyed after): they must be the card's
+    (``perf_model.H100_NVLINK_HOST``); printed with the dispatch they give
+    on the four-card grids (:func:`card_dispatch_table`)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import Topology
+    from repro_torch.core import perf_model as pm
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+        world_size=1)
+    try:
+        params = Topology.from_world(1, 1).params
+        backend = str(dist.get_backend())
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "collectives_world1", "part": "card_constants",
+          "backend": backend, "constants": params.name,
+          "fields": dataclasses.asdict(params),
+          "dispatch_under_card_constants": card_dispatch_table(params)})
+    if params != pm.H100_NVLINK_HOST:
+        raise AssertionError(f"an NCCL world's topology carries "
+                             f"{params.name}, not the card's constants")
 
 
 # ---------------------------------------------------------------------------

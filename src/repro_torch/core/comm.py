@@ -8,7 +8,9 @@ the machine's topology (node count, lanes per node, link constants), so a
   every cost decision is solved under, and — when built with
   :meth:`Topology.from_world` — this rank's ``torch.distributed`` process
   groups: one intra-node group per node and one inter-node group per lane,
-  built once.  Ranks are numbered ``rank = node * ppn + lane`` (napalg);
+  built once.  Ranks are numbered ``rank = node * ppn + lane`` (napalg).
+  An executable topology on an NCCL world takes the H100 host's fitted
+  constants by default, any other the reference's (:func:`world_params`);
 * the **engine registry** (:func:`register_engine` / :func:`select_engine`)
   declares each engine's capabilities, cost model and executable lowering;
   dispatch is a capability-filtered cost tournament;
@@ -55,6 +57,7 @@ from . import collectives, napalg, perf_model as pm
 
 __all__ = [
     "Topology",
+    "world_params",
     "RankGroups",
     "Group",
     "EngineSpec",
@@ -185,6 +188,21 @@ def _build_grid_groups(grids: np.ndarray) -> RankGroups:
                           int(r) for r in grids[o].reshape(-1)))
 
 
+def world_params() -> pm.MachineParams:
+    """The machine constants an executable topology takes when none are
+    given: :data:`~repro_torch.core.perf_model.H100_NVLINK_HOST` when this
+    process's ``torch.distributed`` world runs its collectives on NCCL (a
+    backend of ``"nccl"`` or ``"cpu:gloo,cuda:nccl"``, as the launcher
+    makes on the cards), else the reference's
+    :data:`~repro_torch.core.perf_model.TPU_V5E_POD` (no world, gloo, a
+    fake world).  Every rank of a world has its backend, so every rank
+    dispatches under the same constants."""
+    if (dist.is_available() and dist.is_initialized()
+            and "nccl" in str(dist.get_backend()).lower()):
+        return pm.H100_NVLINK_HOST
+    return pm.TPU_V5E_POD
+
+
 # (axis names, mesh shape, inter, intra) -> (the default group they were
 # built in, this rank's groups): a mesh's groups are built once per world
 _GRID_GROUPS: dict = {}
@@ -235,7 +253,8 @@ class Topology:
     def of(
         cls, n_nodes: int, ppn: int, *, params: pm.MachineParams | None = None
     ) -> "Topology":
-        """Explicit grid shape, no process groups (planning use)."""
+        """Explicit grid shape, no process groups (planning use); the
+        reference's constants unless ``params`` are given."""
         return cls(int(n_nodes), int(ppn), params=params or pm.TPU_V5E_POD)
 
     @classmethod
@@ -244,10 +263,11 @@ class Topology:
     ) -> "Topology":
         """The executable topology of this process: ``torch.distributed``
         must be initialised with ``n_nodes * ppn`` ranks (or not at all for
-        a grid of one).  Builds the intra-node and inter-node groups."""
+        a grid of one).  Builds the intra-node and inter-node groups.
+        ``params=None`` takes :func:`world_params`."""
         n_nodes, ppn = int(n_nodes), int(ppn)
         return cls(
-            n_nodes, ppn, params=params or pm.TPU_V5E_POD,
+            n_nodes, ppn, params=params or world_params(),
             groups=_build_groups(n_nodes, ppn),
         )
 
@@ -264,7 +284,8 @@ class Topology:
         When ``torch.distributed`` runs a world of the mesh's size, this
         rank's groups are built: one DP grid for every index of the mesh's
         other axes (every ``model`` index has its own).  Otherwise the
-        topology is for planning only."""
+        topology is for planning only.  ``params=None`` takes
+        :func:`world_params`."""
         if inter_axes is None or intra_axes is None:
             from ..launch.mesh import hierarchy_axes
 
@@ -299,7 +320,7 @@ class Topology:
                                  order)
             groups = _build_grid_groups(grids.reshape(-1, n, ppn))
             _GRID_GROUPS[key] = (dist.group.WORLD, groups)
-        return cls(n, ppn, params=params or pm.TPU_V5E_POD, groups=groups,
+        return cls(n, ppn, params=params or world_params(), groups=groups,
                    inter_axes=inter, intra_axes=intra)
 
     @classmethod

@@ -8,11 +8,16 @@ costs, the NAP<->MLA crossover, the model-optimal pipeline depth, the
 model-optimal grad-sync bucket size, and :meth:`MachineParams.fit`, which
 fits the inter-node constants to measured message times.
 
-The machine constants are the JAX package's own (:data:`TPU_V5E_POD` is
-its default, :data:`BLUE_WATERS` the paper's), kept so that the port plans
-and dispatches exactly as the reference does.  They describe those
-machines, not an H100 host: fitting constants for NVLink / InfiniBand is
-an open item.  All sizes are bytes, all times seconds.
+Three sets of constants ship.  :data:`TPU_V5E_POD` (the JAX package's
+default) and :data:`BLUE_WATERS` (the paper's) are the reference's own, kept
+so that the port plans and dispatches exactly as the reference does.
+:data:`H100_NVLINK_HOST` is the port's: fitted by
+``tools/fit_machine_4gpu.py`` on four H100s of one host, whose two levels
+are both NVLink, so it describes an NVLink host with no slow domain.  An
+executable topology on an NCCL world takes it by default
+(``comm.world_params``); planning (``comm.Topology.of``), gloo worlds and
+the SPMD lint keep :data:`TPU_V5E_POD`.  Constants for InfiniBand wait for
+a machine of more than one host.  All sizes are bytes, all times seconds.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ __all__ = [
     "MachineParams",
     "BLUE_WATERS",
     "TPU_V5E_POD",
+    "H100_NVLINK_HOST",
     "postal_cost",
     "maxrate_message_cost",
     "cost_rd",
@@ -134,6 +140,27 @@ TPU_V5E_POD = MachineParams(
     R_N=2.5e10,       # ~25 GB/s per-host NIC (4 chips)
     gamma=1.25e-12,   # 819 GB/s HBM-bound vector add
     name="tpu_v5e_pod",
+)
+
+# Four NVIDIA H100 80GB HBM3 at 700.00 W of one host (nvidia-smi
+# --query-gpu=name,power.limit --format=csv,noheader), as printed by
+# ``tools/fit_machine_4gpu.py`` on its 2x2 grid (2 "pod" x 2 "data", one
+# rank a card, NCCL): NVLink, one host, both levels, so there is no slow
+# domain.  Host clock: the median of 5 repeats of R back-to-back engine
+# rounds (``collectives._ppermute``) ending in one synchronise, over R, the
+# slowest rank's; Python between the NCCL calls included.  ``alpha`` /
+# ``R_b`` / ``R_N`` from ``MachineParams.fit`` over the pod exchanges at
+# k = 1 and k = 2, 4 B to 64 MB; ``alpha_l`` / ``beta_l`` from the fit over
+# the data exchanges; ``gamma`` from an in-place float32 add of 1 to 256 MB
+# on CUDA events.  Not tuned by hand.
+H100_NVLINK_HOST = MachineParams(
+    alpha_l=0.00024379380817420192,
+    beta_l=1.1408393299822555e-12,
+    alpha=0.0004121778432599465,
+    R_b=191813638654.04333,
+    R_N=128285901032.43329,
+    gamma=9.823636927774175e-13,
+    name="h100_nvlink_host",
 )
 
 

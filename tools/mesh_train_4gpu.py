@@ -29,8 +29,9 @@ time printed carries that caveat (``LINKS``).
   against gloo: int32, max / min and gathers exact; a float32 sum within
   1e-6 x log2(world), a bfloat16 one within (world - 1) x 2^-8, of each
   element's sum of absolute values.  ``algorithm="auto"``'s pick at each
-  payload and grid (the reference's TPU constants), and each engine's
-  host ms a call (synchronised, median of ``reps``).
+  payload and grid under the topology's constants (the card's on NCCL,
+  ``perf_model.H100_NVLINK_HOST``; the reference's on gloo), and each
+  engine's host ms a call (synchronised, median of ``reps``).
 * ``sync`` — minicpm-2b-4l's gradient tree (published widths, bf16) plus
   an int32 leaf through ``sync_with_context`` (none / int8 / int4 /
   int4+EF) and ``sync_grads_sharded`` + ``unshard_grads`` (none / int8 /
@@ -479,7 +480,7 @@ def section_engines(rank, device, sizes, rep: Report) -> None:
                   "supported": ext_ok, "max_excess": worst,
                   "nap_allreduce_large_ms_per_call": ms, "links": LINKS})
 
-        # what "auto" picks (the reference's TPU constants), and its run
+        # what "auto" picks (the topology's constants), and its run
         picks, worst = {}, 0.0
         for size in payloads:
             for coll in ("allreduce", "reduce_scatter", "allgather"):
@@ -494,7 +495,7 @@ def section_engines(rank, device, sizes, rep: Report) -> None:
             rep.hold(e <= 1, f"auto {grid} {size}: {e:.3g}")
         rep.emit({"check": "engines_auto", "grid": grid,
                   "float32_bytes_to_engine": picks, "max_excess": worst,
-                  "constants": "TPU_V5E_POD (the reference's)"})
+                  "constants": topo.params.name})
 
 
 # ---------------------------------------------------------------------------
@@ -1330,10 +1331,10 @@ def run(device=None) -> list:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def conclude(ranks: list, dev, sections, t0: float) -> None:
+def conclude(ranks: list, dev, sections, t0: float, **summary) -> None:
     """Rank 0's last lines: on the cards their name and power limit, then
-    ``{"ok": ...}`` over every rank's failed checks; exits 1 if any
-    failed."""
+    ``{"ok": ...}`` over every rank's failed checks (with ``summary``'s
+    fields); exits 1 if any failed."""
     bad = [b for r in ranks for b in r["bad"]]
     if dev.type == "cuda":
         print(subprocess.run(
@@ -1344,7 +1345,8 @@ def conclude(ranks: list, dev, sections, t0: float) -> None:
     print(json.dumps({"ok": not bad, "failed": bad,
                       "sections": list(sections),
                       "world": math.prod(WORLD_GRID), "device": dev.type,
-                      "s": time.perf_counter() - t0}), flush=True)
+                      "s": time.perf_counter() - t0, **summary}),
+          flush=True)
     if bad:
         raise SystemExit(1)
 

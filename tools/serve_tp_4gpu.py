@@ -46,7 +46,8 @@ time printed carries that caveat (``LINKS``).
   fewest tokens served alone, then continuous batching of all 12 through
   the same engine, their streams bitwise equal; ``dispatch_report()``
   equal to ``decode_dispatch``'s plan, its logits engine the pin or
-  ``auto``'s planned one (``sizes["plan"]``); the greedy tokens of the
+  ``auto``'s planned one (``sizes["plan"]``), both under the topology's
+  constants (the card's on NCCL); the greedy tokens of the
   requests served alone against a ``ctx=None`` engine on rank 0's card
   with a rank's row count (2), so that only the head differs, by the
   near-tie criterion (:func:`near_tie`).  Recorded: decode ms a step (the
@@ -102,7 +103,8 @@ from mesh_train_4gpu import (  # noqa: E402
 SERVE_WORKLOAD = (([3, 1, 4], 5), ([1, 5, 9, 2, 6], 4), ([2, 7, 1, 8], 6))
 CHECK = dict(num_slots=10, max_len=24, buckets=(4, 8))
 #: what the check's dispatch must be on each grid: (logits allreduce,
-#: hidden allgather, EOS min-reduce)
+#: hidden allgather, EOS min-reduce); the same under the card's constants
+#: (NCCL) and the reference's (gloo)
 CHECK_DISPATCH = {"2x2": ("nap", "mla_ag", "psum"),
                   "4x1": ("mla", "mla_ag", "psum"),
                   "1x4": ("psum", "all_gather", "psum")}
@@ -129,19 +131,18 @@ CARD_SIZES = {
         "config": "minicpm-2b-8l", "num_slots": 8, "max_len": 512,
         "buckets": (32, 64, 128, 256), "requests": 12, "prompt": (16, 256),
         "new": (32, 128), "first": 8, "after": 2, "serial": 2,
-        # auto's logits engine at 8 slots (3.93 MB) under the reference's
-        # TPU constants
-        "plan": {"2x2": "mla_pipelined", "4x1": "mla", "1x4": "psum"}},
+        # auto's logits engine at 8 slots (3.93 MB) under the topology's
+        # constants: on NCCL the card's (perf_model.H100_NVLINK_HOST)
+        "plan": {"2x2": "nap", "4x1": "mla", "1x4": "psum"}},
     "families": {
         "configs": ["gemma2-27b-2l", "rwkv6-1.6b", "jamba-1.5-large-1s-4e",
                     "whisper-tiny"],
         "num_slots": 8, "max_len": 256, "buckets": None, "requests": 4,
         "prompt": (8, 48), "new": (16, 16), "first": 3, "after": 2,
         "serial": 4, "frames": 1500,
-        "plan": {"gemma2-27b-2l": "mla_pipelined",
-                 "rwkv6-1.6b": "mla_pipelined",
-                 "jamba-1.5-large-1s-4e": "mla_pipelined",
-                 "whisper-tiny": "mla"}},
+        # under the card's constants, as full_width's
+        "plan": {"gemma2-27b-2l": "nap", "rwkv6-1.6b": "nap",
+                 "jamba-1.5-large-1s-4e": "nap", "whisper-tiny": "nap"}},
     "router": {"num_slots": 4, "max_len": 32, "buckets": (4, 8, 16),
                "requests": 10, "prompt": (3, 8), "new": (8, 12),
                "straggle_step": 6, "fail_step": 9},
@@ -591,8 +592,8 @@ def serve_grid(model, ctx, spec, traffic, pick, extras, one, rank, device,
     used = gather(_used_bytes(device))
     topo = ctx.topology
     plan = decode_dispatch(
-        CommContext(Topology.of(topo.n_nodes, topo.ppn), ctx.policy),
-        model.cfg, topo.group, engine.b_max)
+        CommContext(Topology.of(topo.n_nodes, topo.ppn, params=topo.params),
+                    ctx.policy), model.cfg, topo.group, engine.b_max)
     report = engine.dispatch_report()
     row = {"requests": len(cont), "served_alone": pick,
            "tokens_generated": sum(map(len, cont)),
@@ -604,6 +605,7 @@ def serve_grid(model, ctx, spec, traffic, pick, extras, one, rank, device,
                         for k, v in report.items()},
            "dispatch_is_plan": rep.hold(report == plan,
                                         f"{tag}: dispatch {report} != plan"),
+           "constants": topo.params.name,
            "b_max": engine.b_max,
            # the serving path runs none of the five kernels
            "kernel_launches": launches,
