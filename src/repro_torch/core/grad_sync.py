@@ -53,6 +53,7 @@ from .collectives import (
 )
 from .. import tree as tree_util
 from ..kernels import ref, transport
+from ..trace_regions import span
 
 __all__ = [
     "GradSyncConfig",
@@ -431,7 +432,8 @@ def sync_with_context(
                 "bucket plan does not match the gradient tree "
                 f"(plan for {plan.signature}, got {sig})"
             )
-    out, new_ef = _execute_plan(leaves, plan, ctx, ef=ef_leaves)
+    with span("grad_sync"):
+        out, new_ef = _execute_plan(leaves, plan, ctx, ef=ef_leaves)
     synced = tree_util.unflatten(treedef, out)
     if ef_state is None:
         return synced

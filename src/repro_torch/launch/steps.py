@@ -49,6 +49,7 @@ from ..models.layers import head_dot
 from ..models.model import _dtype, _final_hidden
 from ..models.sharding import ShardingPolicy, is_dtensor, spec_leaves
 from ..optim import adamw_init, adamw_update, ef_init, make_schedule
+from ..trace_regions import span
 from .mesh import dp_axes as mesh_dp_axes
 
 __all__ = ["make_policy", "microbatch_split", "make_train_step",
@@ -164,8 +165,11 @@ def make_train_step(model, opt_cfg, *, n_micro: int = 1,
         leaves, treedef = tree_util.flatten(params)
         with policy.scope():
             if n_micro == 1:
-                loss, _ = model(batch)
-                grads = constrain(list(torch.autograd.grad(loss, leaves)))
+                with span("forward"):
+                    loss, _ = model(batch)
+                with span("backward"):
+                    grads = constrain(list(torch.autograd.grad(loss,
+                                                               leaves)))
                 loss = loss.detach()
             else:
                 acc = constrain([
@@ -176,8 +180,10 @@ def make_train_step(model, opt_cfg, *, n_micro: int = 1,
                 lsum = torch.zeros((), dtype=torch.float32,
                                    device=model.device)
                 for mb in _microbatches(batch, n_micro):
-                    l, _ = model(mb)
-                    g = constrain(list(torch.autograd.grad(l, leaves)))
+                    with span("forward"):
+                        l, _ = model(mb)
+                    with span("backward"):
+                        g = constrain(list(torch.autograd.grad(l, leaves)))
                     with torch.no_grad():
                         for a, gg in zip(acc, g):
                             a.add_(gg.to(torch.float32))
@@ -244,8 +250,10 @@ def make_dp_train_step(cfg, opt_cfg, topology: comm.Topology,
         model, opt = state["model"], state["opt"]
         params = model.params()
         leaves, treedef = tree_util.flatten(params)
-        loss, _ = model(batch)
-        grads = torch.autograd.grad(loss, leaves)
+        with span("forward"):
+            loss, _ = model(batch)
+        with span("backward"):
+            grads = torch.autograd.grad(loss, leaves)
         grads = tree_util.unflatten(treedef, list(grads))
         with torch.no_grad():
             new_ef = None

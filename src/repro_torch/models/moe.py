@@ -48,6 +48,7 @@ from .layers import _ACTS, dense, glu_mlp, init_dense, init_glu_mlp
 from .sharding import (
     ShardingPolicy, block_index, from_block, is_dtensor, local_block,
 )
+from ..trace_regions import count_moe_route, span
 
 __all__ = ["init_moe", "moe_apply"]
 
@@ -117,6 +118,7 @@ def _route_local(x_flat, top_idx, top_gate, we_gate, we_up, we_down, *,
     # experts are distinct), so rows past ``tg`` would stay empty: hold
     # min(cap, tg) rows; which items are dropped (pos >= cap) is unchanged
     rows = min(cap, tg)
+    count_moe_route(T * K, groups * E * rows, keep)
     base = torch.arange(groups, device=x_flat.device)[:, None] * (E * rows)
     overflow = groups * E * rows
     slot = torch.where(keep, base + dest * rows + pos,
@@ -125,8 +127,9 @@ def _route_local(x_flat, top_idx, top_gate, we_gate, we_up, we_down, *,
     buf = torch.zeros((overflow + 1, D), dtype=x_flat.dtype,
                       device=x_flat.device).index_put((slot,), src)
     xe = buf[:-1].reshape(groups, E, rows, D).transpose(0, 1)
-    out = _expert_ffn(we_gate, we_up, we_down,
-                      xe.reshape(E, groups * rows, D), act)
+    with span("moe.experts"):
+        out = _expert_ffn(we_gate, we_up, we_down,
+                          xe.reshape(E, groups * rows, D), act)
     y = out.reshape(E, groups, rows, D).transpose(0, 1).reshape(overflow, D)
     y = torch.cat([y, y.new_zeros((1, D))])  # dropped -> 0
     gathered = y[slot] * top_gate.reshape(-1)[:, None].to(y.dtype)
@@ -339,15 +342,16 @@ def moe_apply(params, x: torch.Tensor, *, cfg, groups: int = 1,
     # the router and the routes read one flat view of the tokens, as on a
     # mesh: their gradients add up there before the shared experts' do
     x_flat = x.reshape(B * S, D)
-    top_gate, top_idx, density, mean_prob = _router(
-        params["w_router"], x_flat.reshape(B, S, D), m)
-    routed = _route_local(
-        x_flat,
-        top_idx.reshape(B * S, m.top_k),
-        top_gate.reshape(B * S, m.top_k),
-        params["we_gate"], params["we_up"], params["we_down"],
-        cap_factor=m.capacity_factor, act=cfg.act, groups=groups,
-    )
+    with span("moe.route"):
+        top_gate, top_idx, density, mean_prob = _router(
+            params["w_router"], x_flat.reshape(B, S, D), m)
+        routed = _route_local(
+            x_flat,
+            top_idx.reshape(B * S, m.top_k),
+            top_gate.reshape(B * S, m.top_k),
+            params["we_gate"], params["we_up"], params["we_down"],
+            cap_factor=m.capacity_factor, act=cfg.act, groups=groups,
+        )
     y = routed.reshape(B, S, D)
     if "shared" in params:
         y = y + glu_mlp(params["shared"], x, cfg.act)

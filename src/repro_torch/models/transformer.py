@@ -39,6 +39,7 @@ from .layers import (
 )
 from .sharding import ShardingPolicy
 from .. import tree as tree_util
+from ..trace_regions import recompute_span
 
 __all__ = ["init_stack", "stack_apply", "init_stack_cache", "stack_decode"]
 
@@ -188,7 +189,7 @@ def _remat_wrap(body, remat: str):
     mixed = mixed_bwd_enabled()
 
     def scoped(x, aux):
-        with mixed_bwd(mixed):
+        with mixed_bwd(mixed), recompute_span():
             return body(x, aux)
 
     kw = {}

@@ -20,6 +20,7 @@ import torch
 
 from .. import tree as tree_util
 from ..models.sharding import is_dtensor, replicated_scope
+from ..trace_regions import span
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "global_norm"]
 
@@ -79,29 +80,30 @@ def adamw_update(
 ):
     """Update ``params`` and the moments in place; returns
     ``(new_state, metrics)``."""
-    b1, b2 = betas
-    flat_p = tree_util.leaves(params)
-    flat_g = tree_util.leaves(grads)
-    gnorm = global_norm(flat_g)
-    dev = gnorm.device
-    f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
-    scale = None
-    if grad_clip is not None:
-        scale = torch.minimum(
-            f32(1.0), f32(grad_clip) / torch.maximum(gnorm, f32(1e-12))
-        )
-    step = state.step + 1
-    c1 = 1.0 - torch.pow(f32(b1), f32(step))
-    c2 = 1.0 - torch.pow(f32(b2), f32(step))
-    lr_t = f32(float(lr))
-    # one leaf at a time, in place where the arithmetic allows: the
-    # temporaries are a few copies of one leaf, never of the whole tree
-    # (gemma2-27b's 256,000 x 4,608 embedding is 4.7 GB in float32)
-    with _mesh_scope(flat_p):
-        _update_leaves(flat_g, state, flat_p, scale=scale, b1=b1, b2=b2,
-                       c1=c1, c2=c2, lr_t=lr_t, eps=eps,
-                       weight_decay=weight_decay)
-    return AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm}
+    with span("adamw"):
+        b1, b2 = betas
+        flat_p = tree_util.leaves(params)
+        flat_g = tree_util.leaves(grads)
+        gnorm = global_norm(flat_g)
+        dev = gnorm.device
+        f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
+        scale = None
+        if grad_clip is not None:
+            scale = torch.minimum(
+                f32(1.0), f32(grad_clip) / torch.maximum(gnorm, f32(1e-12))
+            )
+        step = state.step + 1
+        c1 = 1.0 - torch.pow(f32(b1), f32(step))
+        c2 = 1.0 - torch.pow(f32(b2), f32(step))
+        lr_t = f32(float(lr))
+        # one leaf at a time, in place where the arithmetic allows: the
+        # temporaries are a few copies of one leaf, never of the whole tree
+        # (gemma2-27b's 256,000 x 4,608 embedding is 4.7 GB in float32)
+        with _mesh_scope(flat_p):
+            _update_leaves(flat_g, state, flat_p, scale=scale, b1=b1, b2=b2,
+                           c1=c1, c2=c2, lr_t=lr_t, eps=eps,
+                           weight_decay=weight_decay)
+        return AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm}
 
 
 def _update_leaves(flat_g, state, flat_p, *, scale, b1, b2, c1, c2, lr_t,
