@@ -7,7 +7,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 
 1. ``device``: the card (``nvidia-smi`` name and power limit, maximum SM
    clock), torch and CUDA versions.
-2. ``build``: compile the four sources under
+2. ``build``: compile the five sources under
    ``src/repro_torch/kernels/csrc/`` with ``nvcc`` for ``sm_90a``, one
    compiler per source, all at once (seconds); per kernel instance its
    registers, spill bytes, static and dynamic shared memory (flash
@@ -27,19 +27,30 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    main path's bucket shapes (device time per call: CUDA events around 10
    back-to-back calls, median of 5, after warm-up; and the latency of one
    call on an idle card, host time included, median of 25) beside the
-   bytes bound and the plain versions' times.
+   bytes bound and the plain versions' times.  AdamW's two kernels
+   (``kernels.adamw``, the port's own) at the benchmark's configuration,
+   deepseek-moe-16b at its published widths, 2 layers and the untied head
+   (16 leaves, 1,595,156,480 parameters; gradients scaled so that the clip
+   acts): ``adamw_apply`` bit for bit ``optim.adamw._update_leaves`` given
+   the same clip scale (int views), ``sq_norm`` the same bits twice and its
+   norm within 1e-6 (relative) of a float64 one; then both kernels' times
+   (as above) beside their bytes bound (2 B and 22 B a parameter) and the
+   plain ``global_norm`` / ``_update_leaves`` times.
 4. ``train``: minicpm-2b at its published widths (depth cut to 4 layers),
    bf16, world size 1, global batch 8 x 512 from ``SyntheticLM``: 5 steps
    of ``CommPolicy(nap, mean, compress_bits=4, error_feedback=True)``,
    then 3 steps at ``compress_bits=8``.  Launch counters are zeroed just
-   before each run and read just after; each kernel must have launched
-   exactly (buckets in the plan x steps) times.
+   before each run and read just after; each transport kernel must have
+   launched exactly (buckets in the plan x steps) times, AdamW's
+   ``sq_norm`` once a step and ``adamw_apply`` once a leaf a step (as in
+   every phase that trains on the card, with ``mesh=None``).
 5. ``profile``: one more int4+EF step under ``torch.profiler``: device
    busy time by kernel class (transport / matmul / other) and the idle
    share; the full table goes to ``chiprun_out/profile_step.txt``.
 6. ``train_vs_plain``: 2 steps of the same int4+EF step with the transport
-   routed to the plain versions; parameters and losses must be bitwise
-   equal to the kernel run's first 2 steps.
+   routed to the plain versions (AdamW on its kernels on both sides, held
+   against its plain version in phase ``kernels``); parameters and losses
+   must be bitwise equal to the kernel run's first 2 steps.
 7. ``reference_small``: the reduced config in float32, 2 steps on the card
    (kernels) against the same steps on the CPU (plain versions); losses
    must agree to rtol 1e-4 (cuBLAS and the CPU sum in other orders).
@@ -156,8 +167,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    checkpoint after step 3 (keep 1) and a fresh loop on the same
    directory run to 6; losses, parameters and moments bitwise equal; the
    checkpoint's bytes and write seconds; a temporary directory, removed.
-   Launch counters zeroed before each run and read after: no kernel of
-   the repository runs on this path (0).
+   Launch counters zeroed before each run and read after: of the
+   repository's kernels only AdamW's run on this path.
 15. ``dp_ef``: the reference's ``check_dp_training_ef_convergence`` at
    1 x 1 on the card: reduced minicpm-2b in float32 from the port's
    seeded parameters (drawn on the CPU), ``SyntheticLM(seq 32, batch 16,
@@ -191,7 +202,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    ``launch.train.build_training`` on minicpm-2b-4l (bf16, published
    widths) at 8 x 512 in microbatches of 2, 2 steps, on a (1, 1)
    ``("data", "model")`` mesh and with ``mesh=None`` from the same seed:
-   losses and every parameter bitwise equal; each route's second-step ms,
+   losses and every parameter bitwise equal (``mesh=None`` on AdamW's
+   kernels; the mesh's DTensor leaves on its plain update, their norm from
+   the ``sq_norm`` kernel over the local shards, whose sum runs in another
+   order than ``torch.sum``); each route's second-step ms,
    peak memory and one more step under the profiler (launches, device
    busy, idle share; tables ``chiprun_out/profile_mesh_<route>_step.txt``).
    Then ``core.grad_sync.make_grad_sync`` on a (1, 1) ``("pod", "data")``
@@ -204,8 +218,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 18. ``mesh_serve``: serving and MoE on the (1, 1) mesh at world size 1
    (``phase_mesh_serve``): minicpm-2b-8l prefill, decode and greedy tokens
    bitwise equal across ``mesh=None``, the train layout and ``serve2d``;
-   deepseek-moe-16b-2l training and ``serve2d`` decode bitwise equal to
-   ``mesh=None``, and its expert-parallel route at one rank.
+   deepseek-moe-16b-2l training (AdamW as in ``mesh``) and ``serve2d``
+   decode bitwise equal to ``mesh=None``, and its expert-parallel route at
+   one rank.
 19. ``dryrun``: the dry run and the op counter (``phase_dryrun``): three
    cells of ``repro_torch.launch.dryrun`` (whisper-tiny train_4k on 16 x
    16, minicpm-2b decode_32k in ``serve2d``, deepseek-moe-16b train_4k on
@@ -241,18 +256,22 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    ms a step as the median after each loop's first, tokens/s, peak
    memory), ``train_lm --compressed-smoke`` (8 steps each of int8 and
    int4 + EF on ``reduced(LM_100M)``: each transport kernel launched once
-   a bucket a step, counted in the example's process from zero; then the
-   same on the plain transport, no launch, losses bitwise equal), and
+   a bucket a step, AdamW's as in ``train``, counted in the example's
+   process from zero; then the same on the plain transport, no transport
+   launch, losses bitwise equal), and
    ``serve_decode`` (seconds per arch).  Each process's seconds are on
    the phase's line.
 
-Then a line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
+Then a line ``{"kernels": [...]}`` (AdamW's two kernels beside the
+ported ones: times from phase ``kernels``, launches from every phase
+that trains), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; exits non-zero
 without one, or without the repository's ``src/`` beside this file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -291,6 +310,7 @@ from repro_torch.configs import (  # noqa: E402
 from repro_torch.core import CommPolicy  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, transport  # noqa: E402
+from repro_torch.kernels import adamw as kadamw  # noqa: E402
 
 trw = importlib.import_module("repro_torch.kernels.rwkv6_scan")
 tms = importlib.import_module("repro_torch.kernels.mamba_scan")
@@ -315,7 +335,8 @@ CARDS = {
 }
 # MUFU.EX2 per clock per SM (the special-function unit's rate on Hopper)
 EX2_PER_CLOCK = 16
-KERNEL_SOURCES = ("transport", "flash_attention", "rwkv6_scan", "mamba_scan")
+KERNEL_SOURCES = ("transport", "flash_attention", "rwkv6_scan", "mamba_scan",
+                  "adamw")
 
 # Widths of the second slice's main path, from the JAX package's configs
 # (src/repro/configs/archs.py and, for the shapes, base.py:217-220).
@@ -547,6 +568,108 @@ def _check_case(gen, *, bits, L, base, R, row_stride, cols, x=None,
     return err
 
 
+# AdamW's kernels at the benchmark's configuration (perfbench's
+# deepseek-moe-16b-2l: published widths, two layers, the untied head;
+# 1,595,156,480 parameters in 16 leaves) and its optimizer's constants
+ADAMW_CFG = dataclasses.replace(CHIP_FAMILIES["deepseek-moe-16b-2l"],
+                                tie_embeddings=False)
+ADAMW_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _adamw_kernels(rates) -> tuple[dict, dict]:
+    """AdamW's two kernels at ADAMW_CFG's leaves (parameters and gradients
+    in the model's dtypes, moments float32, the gradients' norm about 40
+    so that the clip acts), on the update of AdamW's first step:
+    ``adamw_apply`` bit for bit ``optim.adamw._update_leaves`` given the
+    same clip scale, ``sq_norm`` the same bits twice and its norm within
+    1e-6 (relative) of a float64 one.  Then each kernel's time, its bytes
+    bound (the norm reads 2 B a parameter; the update reads g and reads and
+    writes p, m and v, 22 B) and its plain version's time (``global_norm``,
+    ``_update_leaves``).  Returns (the check, the times)."""
+    from repro_torch import tree
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw as optim_adamw
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shapes = [(tuple(t.shape), t.dtype) for t in
+              tree.leaves(init_params(ADAMW_CFG, device="meta"))]
+    rand = lambda s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    p = [(rand(s) * 0.02).to(dt) for s, dt in shapes]
+    g = [(rand(s) * 1e-3).to(dt) for s, dt in shapes]
+    m = [rand(s) * 1e-4 for s, _ in shapes]
+    v = [torch.rand(s, generator=gen, device=dev) * 1e-6 for s, _ in shapes]
+    kadamw.reset_launch_counts()
+    sq = kadamw.sq_norm(g)
+    deterministic = torch.equal(_bits(sq), _bits(kadamw.sq_norm(g)))
+    sq64 = sum(float(t.double().square().sum()) for t in g)
+    plain_norm = float(optim_adamw.global_norm(g))
+    norm = torch.sqrt(sq)
+    f32 = lambda x: torch.full((), x, dtype=torch.float32,  # noqa: E731
+                               device=dev)
+    # adamw_update's scalars at step 1, grad_clip 1.0, lr 3e-4
+    sc = dict(scale=torch.minimum(f32(1.0), f32(1.0) / torch.maximum(
+        norm, f32(1e-12))), c1=1.0 - torch.pow(f32(0.9), f32(1)),
+        c2=1.0 - torch.pow(f32(0.95), f32(1)), lr_t=f32(3e-4), **ADAMW_HYPER)
+    pp, pm, pv = ([t.clone() for t in ts] for ts in (p, m, v))
+    optim_adamw._update_leaves(g, optim_adamw.AdamWState(0, pm, pv), pp,
+                               **sc)
+    kadamw.adamw_apply(g, m, v, p, **sc)
+    torch.cuda.synchronize()
+    unequal = [f"{what}[{i}]" for what, xs, ys in
+               (("p", p, pp), ("m", m, pm), ("v", v, pv))
+               for i, (a, b) in enumerate(zip(xs, ys))
+               if not torch.equal(_bits(a), _bits(b))]
+    del pp, pm, pv
+    torch.cuda.empty_cache()
+    n = sum(t.numel() for t in p)
+    check = {
+        "config": ADAMW_CFG.name, "tie_embeddings": False, "leaves": len(p),
+        "parameters": n, "launches": dict(kadamw.LAUNCHES),
+        "adamw_apply_bitwise_equal_plain": not unequal,
+        "unequal_leaves": unequal, "sq_norm_deterministic": deterministic,
+        "norm": float(norm), "norm_plain": plain_norm,
+        "norm_float64": math.sqrt(sq64),
+        "norm_rel_gap_float64": abs(float(norm) - math.sqrt(sq64))
+        / math.sqrt(sq64),
+        "sq_norm_rel_gap_float64": abs(float(sq) - sq64) / sq64,
+        "norm_plain_rel_gap_float64": abs(plain_norm - math.sqrt(sq64))
+        / math.sqrt(sq64),
+        "tolerance": "adamw_apply bit-identical (int views); the norm "
+        "within 1e-6 of float64's"}
+    if (unequal or not deterministic or check["launches"] != {
+            "sq_norm": 2, "adamw_apply": len(p)}
+            or check["norm_rel_gap_float64"] > 1e-6):
+        raise AssertionError(f"AdamW kernels: {check}")
+    nbytes = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                            for t in ts)
+    g_bytes = nbytes(g)
+    apply_bytes = g_bytes + 2 * (nbytes(p) + nbytes(m) + nbytes(v))
+    state = optim_adamw.AdamWState(0, m, v)
+    times = {
+        "sq_norm": {
+            "ms": median_ms(lambda: kadamw.sq_norm(g)),
+            "plain_ms": median_ms(lambda: optim_adamw.global_norm(g)),
+            "bytes": g_bytes, "bound_ms": g_bytes / rates.bw * 1e3},
+        "adamw_apply": {
+            "ms": median_ms(lambda: kadamw.adamw_apply(g, m, v, p, **sc)),
+            "plain_ms": median_ms(lambda: optim_adamw._update_leaves(
+                g, state, p, **sc)),
+            "bytes": apply_bytes, "bound_ms": apply_bytes / rates.bw * 1e3},
+    }
+    for row in times.values():
+        row["bound_by"] = "bytes"
+        row["achieved_TBps"] = row["bytes"] / row["ms"] / 1e9
+    del p, g, m, v, state
+    kadamw.reset_launch_counts()
+    torch.cuda.empty_cache()
+    return check, times
+
+
 def phase_kernels(bucket_sizes, rates) -> dict:
     """``bucket_sizes``: the leaf sizes of each bucket of the main path's
     plan, in fusion order."""
@@ -580,9 +703,11 @@ def phase_kernels(bucket_sizes, rates) -> dict:
         ))
         n_cases += 1
     del xb
+    adamw_check, adamw_times = _adamw_kernels(rates)
     emit({"phase": "kernels", "cases": n_cases, "bit_identical": True,
           "tolerance": "bit-identical (torch.equal)",
-          "max_abs_err": max_err, "largest_bucket": [1, big]})
+          "max_abs_err": max_err, "largest_bucket": [1, big],
+          "adamw": adamw_check})
 
     bw, flops = rates.bw, rates.f32
     timing = {}
@@ -655,10 +780,28 @@ def phase_kernels(bucket_sizes, rates) -> dict:
               "library_ms_reason": "no single PyTorch call computes a "
               "per-leaf-scaled quantize-and-pack (or its inverse)"})
     torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, "timing": timing}
+    return {"max_abs_err": max_err, "timing": timing, "adamw": adamw_times}
 
 
 OPT = OptimizerConfig(lr=1e-4, schedule="constant", warmup_steps=1)
+ADAMW_KEYS = tuple(kadamw.LAUNCHES)
+
+
+def _adamw_launches(steps, leaves, device="cuda", apply=True) -> dict:
+    """``kernels.adamw.LAUNCHES`` since its last reset, held to one
+    ``sq_norm`` a step and, where ``apply``, one ``adamw_apply`` a leaf a
+    step (none off the card)."""
+    got = dict(kadamw.LAUNCHES)
+    on = int(device != "cpu")
+    want = {"sq_norm": steps * on, "adamw_apply": steps * leaves * on * apply}
+    if got != want:
+        raise AssertionError(f"AdamW launches {got} != {want} ({steps} "
+                             f"steps, {leaves} leaves)")
+    return got
+
+
+def _without_adamw(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if k not in ADAMW_KEYS}
 
 
 def _run(cfg, policy, steps, *, device, data, snapshot_after=None):
@@ -686,7 +829,7 @@ def phase_train() -> dict:
     cfg = MINICPM_2B_4L
     data = SyntheticLM(cfg.vocab_size, SEQ, BATCH, seed=SEED)
     runs, snap, first_losses = [], None, None
-    launches = {k: 0 for k in transport.LAUNCHES}
+    launches = {k: 0 for k in (*transport.LAUNCHES, *ADAMW_KEYS)}
     for bits, ef, steps in ((4, True, 5), (8, False, 3)):
         policy = CommPolicy(algorithm="nap", mean=True, compress_bits=bits,
                             error_feedback=ef)
@@ -696,11 +839,13 @@ def phase_train() -> dict:
         start_bytes = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         transport.reset_launch_counts()
+        kadamw.reset_launch_counts()
         plan, state, losses, times, s = _run(
             cfg, policy, steps, device="cuda", data=data,
             snapshot_after=2 if bits == 4 else None,
         )
         counts = dict(transport.LAUNCHES)
+        adamw = _adamw_launches(steps, len(plan.signature))
         if bits == 4:
             snap, first_losses = s, losses[:2]
         if not all(math.isfinite(l) for l in losses):
@@ -711,7 +856,7 @@ def phase_train() -> dict:
                 f"launches {counts} != {plan.num_buckets} buckets x {steps} "
                 "steps"
             )
-        for k, c in counts.items():
+        for k, c in {**counts, **adamw}.items():
             launches[k] += c
         steady = times[1:]
         ms = statistics.median(steady) * 1e3
@@ -721,7 +866,7 @@ def phase_train() -> dict:
             "ms_per_step": ms, "tokens_per_s": BATCH * SEQ / (ms / 1e3),
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "memory_allocated_at_start": start_bytes,
-            "launches": counts,
+            "launches": counts, "adamw_launches": adamw,
             "plan": [{"leaves": list(b.leaves), "elems": b.elems,
                       "dtype": b.dtype, "algorithm": b.algorithm}
                      for b in plan.buckets],
@@ -801,9 +946,14 @@ def phase_train_vs_plain(kernel_run) -> None:
     policy = CommPolicy(algorithm="nap", mean=True, compress_bits=4,
                         error_feedback=True, transport_impl="plain")
     before = dict(transport.LAUNCHES)
-    _, state, losses, _, _ = _run(cfg, policy, 2, device="cuda", data=data)
+    kadamw.reset_launch_counts()
+    plan, state, losses, _, _ = _run(cfg, policy, 2, device="cuda",
+                                     data=data)
     if transport.LAUNCHES != before:
         raise AssertionError("the plain route launched a kernel")
+    # AdamW on its kernels on both sides (held against its plain version
+    # in phase kernels)
+    adamw = _adamw_launches(2, len(plan.signature))
     params_equal = all(
         torch.equal(a, b)
         for a, b in zip(state["model"].leaves(), kernel_run["snap"])
@@ -812,7 +962,7 @@ def phase_train_vs_plain(kernel_run) -> None:
     emit({"phase": "train_vs_plain", "steps": 2, "losses_plain": losses,
           "losses_kernel": kernel_run["losses"],
           "params_bitwise_equal": params_equal,
-          "losses_bitwise_equal": losses_equal})
+          "losses_bitwise_equal": losses_equal, "adamw_launches": adamw})
     if not (params_equal and losses_equal):
         raise AssertionError("kernel route and plain route differ")
     del state
@@ -2101,9 +2251,11 @@ def _family_train(cfg, device="cuda", *, sizes=FAMILY_TRAIN, data=None,
         policy = CommPolicy(algorithm="nap", mean=True, compress_bits=4,
                             error_feedback=True, transport_impl=impl)
         transport.reset_launch_counts()
+        kadamw.reset_launch_counts()
         plan, state, losses, times, _ = _run(cfg, policy, steps,
                                              device=device, data=data)
         counts = dict(transport.LAUNCHES)
+        adamw = _adamw_launches(steps, len(plan.signature), device)
         want = (plan.num_buckets * steps
                 if impl == "auto" and device != "cpu" else 0)
         if any(c != want for c in counts.values()):
@@ -2120,7 +2272,8 @@ def _family_train(cfg, device="cuda", *, sizes=FAMILY_TRAIN, data=None,
                      "peak_device_memory_bytes":
                          torch.cuda.max_memory_allocated(),
                      "buckets": plan.num_buckets,
-                     "leaves": len(plan.signature), "launches": counts}
+                     "leaves": len(plan.signature), "launches": counts,
+                     "adamw_launches": adamw}
         del state
     if len(routes) > 1:
         (la, pa), (lb, pb) = kept["auto"], kept["plain"]
@@ -2183,12 +2336,13 @@ def phase_families(smi, device="cuda") -> dict:
               "gemma2_window_f32": window,
               "decode_vs_full_f32_reported_not_held": reported,
               "seconds": time.perf_counter() - t0})
-    launches = {k: 0 for k in transport.LAUNCHES}
+    launches = {k: 0 for k in (*transport.LAUNCHES, *ADAMW_KEYS)}
     for cfg in (CHIP_FAMILIES["gemma2-27b-2l"],
                 CHIP_FAMILIES["deepseek-moe-16b-2l"], RWKV6_1_6B_4L):
         t0 = time.perf_counter()
         row = _family_train(cfg, device)
-        for k, c in row["auto"]["launches"].items():
+        for k, c in {**row["auto"]["launches"],
+                     **row["auto"]["adamw_launches"]}.items():
             launches[k] += c
         emit({"phase": "families_train", "nvidia_smi": smi, **row,
               "seconds": time.perf_counter() - t0})
@@ -2224,12 +2378,14 @@ DP_EF_RUNS = (
 
 
 def _all_launches() -> dict:
-    return {**dict(transport.LAUNCHES), **ops.launch_counts()}
+    return {**dict(transport.LAUNCHES), **ops.launch_counts(),
+            **dict(kadamw.LAUNCHES)}
 
 
 def _reset_launches() -> None:
     transport.reset_launch_counts()
     ops.reset_launch_counts()
+    kadamw.reset_launch_counts()
 
 
 def _train_cfg(steps, **kw):
@@ -2243,12 +2399,44 @@ def _train_cfg(steps, **kw):
     return TrainConfig(**base)
 
 
+@contextlib.contextmanager
+def _kernel_norm_on_a_mesh(mesh, device="cuda"):
+    """On a (1, 1) mesh on a card, the norm in AdamW's plain route, the one
+    DTensor leaves take, from the kernel that a ``mesh=None`` run takes
+    (``kernels.adamw.sq_norm`` over the local shards, each the whole
+    tensor at world size 1), since the kernel sums in another order than
+    ``torch.sum``.  The kernel's update is bit for bit the plain one given
+    the same norm (phase kernels), so a mesh run held bit for bit against
+    ``mesh=None``, which runs as it ships, compares the layouts."""
+    from repro_torch import tree
+    from repro_torch.optim import adamw as optim_adamw
+
+    if mesh is None or device == "cpu":
+        yield
+        return
+
+    def norm(grads):
+        leaves = tree.leaves(grads)
+        local = [_local(g) for g in leaves]
+        if any(t.shape != g.shape for t, g in zip(local, leaves)):
+            raise AssertionError("a shard is not its whole tensor")
+        return torch.sqrt(kadamw.sq_norm([t.contiguous() for t in local]))
+
+    real = optim_adamw.global_norm
+    optim_adamw.global_norm = norm
+    try:
+        yield
+    finally:
+        optim_adamw.global_norm = real
+
+
 def _trainer_run(cfg, steps, ckpt_dir, device="cuda", mesh=None,
                  **kw) -> dict:
     """``steps`` steps of ``launch.train.build_training`` (on ``mesh``, if
     given): per-step host time (each step ends in the loss's copy to the
     host, after the AdamW update), losses, peak memory and every kernel's
-    launches."""
+    launches; with ``mesh=None``, AdamW's held to one ``sq_norm`` a step
+    and one ``adamw_apply`` a leaf a step."""
     from repro_torch.launch import build_training
 
     _free()
@@ -2259,6 +2447,9 @@ def _trainer_run(cfg, steps, ckpt_dir, device="cuda", mesh=None,
     loop.run(steps)
     launches = _all_launches()
     log = loop.metrics_log
+    if mesh is None:
+        _adamw_launches(len(log), len(list(loop.state["model"].leaves())),
+                        device)
     losses = [m["loss"] for m in log]
     if not all(math.isfinite(l) for l in losses):
         raise AssertionError(f"{cfg.name}: non-finite loss {losses}")
@@ -2359,8 +2550,9 @@ def phase_trainer(smi, cfg=MINICPM_2B, resume_cfg=MINICPM_2B_4L,
     """minicpm-2b at all 40 layers through ``launch.train.build_training``
     (bf16, remat full, n_micro 4): ms per step, tokens/s, peak memory,
     one more step profiled; remat none / dots / full and bf16_bwd on / off
-    at 2 steps each; the resume check at 4 layers.  No kernel of the repository runs on this
-    path (the models call none): every count is read and must be 0.
+    at 2 steps each; the resume check at 4 layers.  Of the repository's
+    kernels only AdamW's run on this path (the models call none): every
+    other count is read and must be 0.
     (``cfg`` / ``resume_cfg`` / ``device`` are for a CPU rehearsal.)"""
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
@@ -2409,7 +2601,7 @@ def phase_trainer(smi, cfg=MINICPM_2B, resume_cfg=MINICPM_2B_4L,
           "microbatch": TRAINER["microbatch"], "nvidia_smi": smi,
           "main": main, "levers": levers, "launches": launches,
           "resume": resume, "phase_s": time.perf_counter() - t_phase})
-    if any(launches.values()):
+    if any(_without_adamw(launches).values()):
         raise AssertionError(f"a kernel ran on the trainer's path: "
                              f"{launches}")
     if levers["bf16_bwd"]["first_loss_rel_diff"] > 2e-2:
@@ -2462,7 +2654,7 @@ def phase_dp_ef(smi, device="cuda") -> dict:
                           warmup_steps=1)
     topo = mesh_topology(1, 1)
     runs, counts, buckets = {}, {}, {}
-    launches = {k: 0 for k in transport.LAUNCHES}
+    launches = {k: 0 for k in (*transport.LAUNCHES, *ADAMW_KEYS)}
     for name, kw in DP_EF_RUNS:
         policy = CommPolicy(**kw)
         step = make_dp_train_step(cfg, opt, topo, policy, device=device)
@@ -2476,6 +2668,8 @@ def phase_dp_ef(smi, device="cuda") -> dict:
             losses.append(float(m["loss"]))
         counts[name] = _all_launches()
         buckets[name] = step.plan.num_buckets
+        adamw = _adamw_launches(DP_EF["steps"], len(step.plan.signature),
+                                device)
         want = (step.plan.num_buckets * DP_EF["steps"]
                 if kw.get("compress_bits") and device != "cpu" else 0)
         got = {k: counts[name][k] for k in transport.LAUNCHES}
@@ -2483,7 +2677,7 @@ def phase_dp_ef(smi, device="cuda") -> dict:
                 counts[name][k] for k in ops.launch_counts()):
             raise AssertionError(f"dp_ef {name}: launches {counts[name]} != "
                                  f"{want} of each transport kernel")
-        for k, c in got.items():
+        for k, c in {**got, **adamw}.items():
             launches[k] += c
         runs[name] = losses
         del state, step
@@ -2638,6 +2832,7 @@ def phase_whisper(smi) -> dict:
                            device=device)
     tstate = {"model": model, "opt": adamw_init(model.params())}
     t_losses, t_times = [], []
+    kadamw.reset_launch_counts()
     for s_ in range(steps_n):
         batch = data.batch(s_, device)
         torch.cuda.synchronize()
@@ -2648,6 +2843,8 @@ def phase_whisper(smi) -> dict:
     if not all(math.isfinite(l) for l in t_losses):
         raise AssertionError(f"whisper: non-finite loss {t_losses}")
     micro = {"n_micro": sizes["n_micro"], "losses": t_losses,
+             "adamw_launches": _adamw_launches(
+                 steps_n, len(list(model.leaves())), device),
              "step_ms": [t * 1e3 for t in t_times],
              "ms_per_step": t_times[-1] * 1e3,
              "peak_device_memory_bytes": torch.cuda.max_memory_allocated()}
@@ -2661,7 +2858,9 @@ def phase_whisper(smi) -> dict:
           "train": {"batch": [sizes["B"], sizes["S"]], "frames": n,
                     "dp_int4_ef": dp, "make_train_step": micro},
           "phase_s": time.perf_counter() - t_phase})
-    return dp["auto"]["launches"]
+    return {**dp["auto"]["launches"],
+            **{k: dp["auto"]["adamw_launches"][k]
+               + micro["adamw_launches"][k] for k in ADAMW_KEYS}}
 
 
 # ---------------------------------------------------------------------------
@@ -2799,8 +2998,9 @@ def phase_mesh(smi, cfg=MINICPM_2B_4L, device="cuda", sizes=MESH) -> dict:
             # mesh=None first, freed before the mesh run (each peak is its
             # own run's); the parameters are compared on the host
             for name, m in (("plain", None), ("mesh", mesh)):
-                run = _trainer_run(cfg, steps, tmp / name, device, mesh=m,
-                                   **kw)
+                with _kernel_norm_on_a_mesh(m, device):
+                    run = _trainer_run(cfg, steps, tmp / name, device,
+                                       mesh=m, **kw)
                 loop = run["loop"]
                 params = [_local(p).detach().cpu()
                           for p in loop.state["model"].leaves()]
@@ -2843,11 +3043,18 @@ def phase_mesh(smi, cfg=MINICPM_2B_4L, device="cuda", sizes=MESH) -> dict:
     if not all(bitwise.values()):
         raise AssertionError(f"the mesh run differs from mesh=None: "
                              f"{bitwise}")
-    if any(mesh_run["launches"].values()) or any(
-            plain_run["launches"].values()):
+    if any(_without_adamw(mesh_run["launches"]).values()) or any(
+            _without_adamw(plain_run["launches"]).values()):
         raise AssertionError("a kernel ran on the trainer's path")
-    return {k: sum(r["launches"][k] for r in sync.values())
-            for k in ("quantize_pack", "unpack_dequantize")}
+    on = int(device != "cpu")
+    # AdamW: the kernels with mesh=None; its norm kernel alone on the mesh
+    if {k: mesh_run["launches"][k] for k in ADAMW_KEYS} != {
+            "sq_norm": steps * on, "adamw_apply": 0}:
+        raise AssertionError(f"AdamW on the mesh launched "
+                             f"{mesh_run['launches']}")
+    return {**{k: sum(r["launches"][k] for r in sync.values())
+               for k in ("quantize_pack", "unpack_dequantize")},
+            **{k: plain_run["launches"][k] for k in ADAMW_KEYS}}
 
 
 # ---------------------------------------------------------------------------
@@ -3037,14 +3244,16 @@ def phase_mesh_serve(smi, device="cuda", cfg=MINICPM_2B_8L,
         with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_moe_") as tmp:
             train, params = {}, {}
             for name, m in (("plain", None), ("mesh", mesh)):
-                run = _trainer_run(moe_cfg, 2, Path(tmp) / name, device,
-                                   mesh=m, seq_len=sizes["train_seq"],
-                                   global_batch=sizes["train_batch"],
-                                   microbatch=sizes["train_batch"])
+                with _kernel_norm_on_a_mesh(m, device):
+                    run = _trainer_run(moe_cfg, 2, Path(tmp) / name, device,
+                                       mesh=m, seq_len=sizes["train_seq"],
+                                       global_batch=sizes["train_batch"],
+                                       microbatch=sizes["train_batch"])
                 params[name] = [_local(p).detach().cpu() for p in
                                 run["loop"].state["model"].leaves()]
                 train[name] = {k: run[k] for k in (
-                    "losses", "step_ms", "peak_device_memory_bytes")}
+                    "losses", "step_ms", "peak_device_memory_bytes",
+                    "launches")}
                 del run
                 _free()
         moe_bitwise = {
@@ -3103,9 +3312,17 @@ def phase_mesh_serve(smi, device="cuda", cfg=MINICPM_2B_8L,
         bad.append("route_ep at capacity factor 1.0 dropped nothing")
     if bad:
         raise AssertionError(f"phase mesh_serve: {bad}")
-    if any(launches.values()) or any(moe_launches.values()):
+    if any(launches.values()) or any(_without_adamw(moe_launches).values()):
         raise AssertionError("a kernel ran on the mesh serving path")
-    return launches
+    # AdamW in deepseek's training, 2 steps: the kernels with mesh=None
+    # (held by _trainer_run), its norm kernel alone on the mesh (the last
+    # run before the decode's, counters zeroed at each run's start)
+    want = {"sq_norm": 2 * int(device != "cpu"), "adamw_apply": 0}
+    if {k: moe_launches[k] for k in ADAMW_KEYS} != want:
+        raise AssertionError(f"AdamW in deepseek's training on the mesh "
+                             f"launched {moe_launches}, not {want}")
+    return {**launches, **{k: train["plain"]["launches"][k]
+                           for k in ADAMW_KEYS}}
 
 
 # ---------------------------------------------------------------------------
@@ -3225,9 +3442,12 @@ def _dp_route_count(cfg, route: str, device) -> tuple:
     batch = SyntheticLM(cfg.vocab_size, SEQ, BATCH, seed=SEED).batch(
         0, device)
     transport.reset_launch_counts()
+    kadamw.reset_launch_counts()
     (state, m), trace = trace_call(step, state, batch)
     torch.cuda.synchronize()
-    launches = dict(transport.LAUNCHES)
+    # AdamW on its kernels on both of the transport's routes
+    launches = {**dict(transport.LAUNCHES), **_adamw_launches(
+        1, len(step.plan.signature), device)}
     loss = float(m["loss"])
     del state
     _free()
@@ -3359,15 +3579,14 @@ def phase_dryrun(smi, cfg=MINICPM_2B_4L, device="cuda",
         if r["lint_counts"] or r["lint_wire"]:
             bad.append(f"{name}: {r['lint_counts'] + r['lint_wire']}")
     b = a["buckets"]
-    if device != "cpu" and a["kernel_counters"] != {
+    if device != "cpu" and _without_adamw(a["kernel_counters"]) != {
             "quantize_pack": b, "unpack_dequantize": b}:
         bad.append(f"kernel route launched {a['kernel_counters']}")
-    if any(p["kernel_counters"].values()):
-        bad.append("the plain route launched a kernel")
+    if any(_without_adamw(p["kernel_counters"]).values()):
+        bad.append("the plain route launched a transport kernel")
     if bad:
         raise AssertionError("phase dryrun: " + "; ".join(bad))
-    return {k: a["kernel_counters"][k]
-            for k in ("quantize_pack", "unpack_dequantize")}
+    return dict(a["kernel_counters"])
 
 
 # ---------------------------------------------------------------------------
@@ -3608,7 +3827,7 @@ def phase_examples(smi) -> dict:
         bad.append(f"train_lm: {lm}")
     kern, plain = reps["compressed"]["rank0"], reps["compressed_plain"][
         "rank0"]
-    launches = {"quantize_pack": 0, "unpack_dequantize": 0}
+    launches = {k: 0 for k in (*transport.LAUNCHES, *ADAMW_KEYS)}
     for label, row in kern.items():
         once = row["buckets"] * len(row["losses"])
         if row["launches"] != {"quantize_pack": once,
@@ -3616,7 +3835,15 @@ def phase_examples(smi) -> dict:
             bad.append(f"compressed {label}: launches {row['launches']} for "
                        f"{row['buckets']} buckets x {len(row['losses'])} "
                        "steps")
-        for k, v in row["launches"].items():
+        # AdamW on its kernels on both of the transport's routes
+        for side in (row, plain[label]):
+            steps = len(side["losses"])
+            if side["adamw_launches"] != {
+                    "sq_norm": steps, "adamw_apply": steps * side["leaves"]}:
+                bad.append(f"compressed {label}: AdamW launches "
+                           f"{side['adamw_launches']} for {side['leaves']} "
+                           f"leaves x {steps} steps")
+        for k, v in {**row["launches"], **row["adamw_launches"]}.items():
             launches[k] += v
         if any(plain[label]["launches"].values()):
             bad.append(f"compressed {label}: the plain route launched "
@@ -3636,6 +3863,7 @@ def phase_examples(smi) -> dict:
           "compressed": {label: {
               "losses": row["losses"], "buckets": row["buckets"],
               "launches": row["launches"],
+              "adamw_launches": row["adamw_launches"],
               "ms_per_step": statistics.median(row["ms"][1:]),
               "plain_ms_per_step": statistics.median(
                   plain[label]["ms"][1:]),
@@ -3793,6 +4021,33 @@ def main() -> None:
             "ms", "call_ms", "plain_ms", "bound_ms", "bound_ms_simt_rate",
             "library_ms")} for name, c in f32.items()},
     }
+    # AdamW's two kernels, the port's own (the JAX package's AdamW is plain
+    # jnp, which XLA fuses): times at the benchmark's configuration
+    # (phase kernels), launches in every phase that trains
+    phase_launches = {
+        "launches": run["launches"], "launches_families_train":
+        family_launches, "launches_trainer": trainer_launches,
+        "launches_dp_ef": dp_ef_launches,
+        "launches_whisper_train": whisper_launches,
+        "launches_mesh_train": mesh_launches,
+        "launches_mesh_serve_train": mesh_serve_launches,
+        "launches_dryrun": dryrun_launches,
+        "launches_examples": example_launches}
+    for name in ADAMW_KEYS:
+        t = k["adamw"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/adamw.cu",
+            "replaces": None,
+            "replaces_reason": "the port's own: src/repro/optim/adamw.py "
+            "is plain jnp",
+            **{key: v[name] for key, v in phase_launches.items()},
+            "max_abs_err": 0.0 if name == "adamw_apply" else None,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "achieved_TBps": t["achieved_TBps"],
+            "library_ms": None,
+            "config": ADAMW_CFG.name})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -149,9 +149,9 @@ def launch(fn, *, device=None, grid=None, cpu_grid=CPU_GRID,
     their errors are not."""
     dev, (n, ppn) = world_grid(device, grid, cpu_grid=cpu_grid)
     if dev.type == "cuda":
-        from ..kernels import transport
+        from ..kernels import build_train_kernels
 
-        transport.build_library()
+        build_train_kernels()
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(_SRC), env.get("PYTHONPATH")) if p)

@@ -177,10 +177,12 @@ def compressed_rank(rank: int, topology, device, *, steps: int = 8,
                     transport: str = "auto") -> dict:
     """The reduced LM ``steps`` steps over each compressed transport from
     seed 0's parameters (drawn on the CPU): losses, ms a step,
-    buckets, the transport launches of the run, and the trace lint's
-    violations of the first step (transport budget, wire dtypes)."""
+    buckets, leaves, the transport's and AdamW's launches of the run, and
+    the trace lint's violations of the first step (transport budget, wire
+    dtypes)."""
     from ..analysis import trace_lint as tl
     from ..data import SyntheticLM
+    from ..kernels import adamw as ka
     from ..kernels import transport as tk
     from ..launch.steps import init_train_state, make_dp_train_step
     from ..launch.trace_analysis import trace_call
@@ -203,6 +205,7 @@ def compressed_rank(rank: int, topology, device, *, steps: int = 8,
         per = launches_per_bucket(topology.group)
         losses, ms = [], []
         tk.reset_launch_counts()
+        ka.reset_launch_counts()
         for s in range(steps):
             batch = data.batch(s, device)
             t0 = time.perf_counter()
@@ -223,6 +226,8 @@ def compressed_rank(rank: int, topology, device, *, steps: int = 8,
         out[label] = {
             "losses": losses, "ms": ms, "buckets": buckets,
             "launches": dict(tk.LAUNCHES),
+            "adamw_launches": dict(ka.LAUNCHES),
+            "leaves": len(step.plan.signature),
             "expected_launches": {
                 k: (v * buckets * steps
                     if device.type == "cuda" and transport == "auto" else 0)

@@ -44,6 +44,7 @@ from ..core.collectives import _all_reduce
 from ..configs import SHAPES, get_config
 from ..configs.base import OptimizerConfig
 from ..device import require_on, resolve_device
+from ..kernels import build_train_kernels
 from ..models import Model, build_model, init_params
 from ..models.layers import head_dot
 from ..models.model import _dtype, _final_hidden
@@ -144,8 +145,10 @@ def make_train_step(model, opt_cfg, *, n_micro: int = 1,
     of DTensors (``SyntheticLM(mesh=)``) and ``grad_shardings`` a spec
     tree like the parameters (``policy.param_specs``): every gradient, and
     the accumulator after each microbatch, is laid out by it.  The
-    metrics are plain tensors of the full values."""
-    require_on(model, device)
+    metrics are plain tensors of the full values.  On a card, the
+    transport and AdamW kernels are built here (:func:`build_train_kernels`)."""
+    if require_on(model, device).type == "cuda":
+        build_train_kernels()
     sched = make_schedule(opt_cfg)
     policy = model.policy
     specs = None
@@ -233,9 +236,11 @@ def make_dp_train_step(cfg, opt_cfg, topology: comm.Topology,
     this rank's residuals under error feedback), the loss scalar through
     ``nap`` (or the pinned algorithm) when there is a slow domain and a
     plain mean otherwise, then AdamW at the schedule's rate.  The model,
-    moments and residuals are updated in place.
+    moments and residuals are updated in place.  On a card, the transport
+    and AdamW kernels are built here (:func:`build_train_kernels`).
     """
-    resolve_device(device)
+    if resolve_device(device).type == "cuda":
+        build_train_kernels()
     topo = topology
     groups = topo.require_groups()
     ctx = comm.CommContext(topo, sync_cfg)

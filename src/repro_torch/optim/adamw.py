@@ -9,6 +9,16 @@ card as on the CPU.
 Leaves may be DTensors (a model on a mesh): the moments take each
 parameter's placements, the update runs on each rank's shards, and
 :func:`global_norm` is the norm of the full tensors.
+
+Routing (:func:`adamw_update`), by what the leaves are: plain CUDA leaves
+take the two kernels of :mod:`repro_torch.kernels.adamw`, the norm's sum
+of squares and one pass a leaf, bit for bit the plain update below given
+the same norm (the norm's sum is taken in another order, so it may differ
+in its last bits); CPU and ``meta`` leaves and DTensor leaves (their norm
+needs ``full_tensor()``) take the plain version, :func:`global_norm` and
+``_update_leaves``.  For the op tracer both routes of plain leaves are two
+kernel regions that declare the kernels' bytes, so that a step counts
+alike on the card and on ``meta``.
 """
 
 from __future__ import annotations
@@ -19,8 +29,10 @@ from typing import NamedTuple
 import torch
 
 from .. import tree as tree_util
+from ..kernels import _build
+from ..kernels import adamw as adamw_kernels
 from ..models.sharding import is_dtensor, replicated_scope
-from ..trace_regions import span
+from ..trace_regions import kernel_region, span
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "global_norm"]
 
@@ -84,7 +96,12 @@ def adamw_update(
         b1, b2 = betas
         flat_p = tree_util.leaves(params)
         flat_g = tree_util.leaves(grads)
-        gnorm = global_norm(flat_g)
+        fused = _use_kernels(flat_g, state, flat_p)
+        plain_leaves = not is_dtensor(flat_p[0])
+        with _region("adamw.sq_norm", plain_leaves,
+                     lambda: sum(_nbytes(g) for g in flat_g), flat_g):
+            gnorm = (torch.sqrt(adamw_kernels.sq_norm(flat_g)) if fused
+                     else global_norm(flat_g))
         dev = gnorm.device
         f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
         scale = None
@@ -96,14 +113,57 @@ def adamw_update(
         c1 = 1.0 - torch.pow(f32(b1), f32(step))
         c2 = 1.0 - torch.pow(f32(b2), f32(step))
         lr_t = f32(float(lr))
-        # one leaf at a time, in place where the arithmetic allows: the
-        # temporaries are a few copies of one leaf, never of the whole tree
-        # (gemma2-27b's 256,000 x 4,608 embedding is 4.7 GB in float32)
-        with _mesh_scope(flat_p):
-            _update_leaves(flat_g, state, flat_p, scale=scale, b1=b1, b2=b2,
-                           c1=c1, c2=c2, lr_t=lr_t, eps=eps,
-                           weight_decay=weight_decay)
+        # g read, p, m and v read and written, once each
+        apply_bytes = lambda: sum(  # noqa: E731
+            _nbytes(g) + 2 * (_nbytes(p) + _nbytes(m) + _nbytes(v))
+            for g, m, v, p in zip(flat_g, state.mu, state.nu, flat_p))
+        state_leaves = [*flat_p, *state.mu, *state.nu]
+        with _region("adamw.apply", plain_leaves, apply_bytes,
+                     [*flat_g, *state_leaves, scale, c1, c2, lr_t],
+                     state_leaves):
+            if fused:
+                adamw_kernels.adamw_apply(
+                    flat_g, state.mu, state.nu, flat_p, scale=scale, c1=c1,
+                    c2=c2, lr_t=lr_t, b1=b1, b2=b2, eps=eps,
+                    weight_decay=weight_decay)
+            else:
+                # one leaf at a time, in place where the arithmetic allows:
+                # the temporaries are a few copies of one leaf, never of the
+                # whole tree (gemma2-27b's 256,000 x 4,608 embedding is 4.7
+                # GB in float32)
+                with _mesh_scope(flat_p):
+                    _update_leaves(flat_g, state, flat_p, scale=scale, b1=b1,
+                                   b2=b2, c1=c1, c2=c2, lr_t=lr_t, eps=eps,
+                                   weight_decay=weight_decay)
         return AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm}
+
+
+def _use_kernels(flat_g, state: AdamWState, flat_p) -> bool:
+    """True where the CUDA kernels take the update (module docstring);
+    raises on leaves on several devices or non-contiguous CUDA leaves."""
+    if is_dtensor(flat_p[0]) or flat_p[0].device.type == "meta":
+        return False
+    return _build.use_kernel("auto", *flat_g, *state.mu, *state.nu, *flat_p)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+@contextlib.contextmanager
+def _region(name: str, plain_leaves: bool, io_bytes, inputs, outputs=()):
+    """The op tracer's kernel region of ``name`` over plain leaves, with
+    its operands named for the SPMD lint (``outputs``: the tensors it
+    writes in place); none over DTensor leaves, whose plain ops run as
+    they are counted."""
+    if not plain_leaves:
+        yield
+        return
+    with kernel_region(name, io_bytes) as region:
+        region.inputs(**{f"x{i}": t for i, t in enumerate(inputs)
+                         if t is not None})
+        region.output(*outputs)
+        yield
 
 
 def _update_leaves(flat_g, state, flat_p, *, scale, b1, b2, c1, c2, lr_t,

@@ -28,6 +28,7 @@ from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.rwkv6_scan import rwkv6_scan_pallas
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import adamw as kadamw
 
 from _torch_fakes import fake_kernel_route
 
@@ -416,12 +417,12 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_every_kernel_source_is_built_for_sm90a_without_fast_math():
     names = sorted(p.stem for p in _build.source("x").parent.glob("*.cu"))
-    assert names == ["flash_attention", "mamba_scan", "rwkv6_scan",
+    assert names == ["adamw", "flash_attention", "mamba_scan", "rwkv6_scan",
                      "transport"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
     for mod, src in ((tfa, "flash_attention"), (trw, "rwkv6_scan"),
-                     (tms, "mamba_scan")):
+                     (tms, "mamba_scan"), (kadamw, "adamw")):
         assert mod._SOURCE == _build.source(src) and mod._SOURCE.is_file()
 
 

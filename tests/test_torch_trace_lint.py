@@ -250,10 +250,11 @@ def test_dp_step_at_one_rank_is_clean(bits):
     tl.assert_clean(tl.lint_stable_trace(step, state, data.batch(1, "cpu")),
                     "stable")
     # the plain route's ops inside the regions add nothing: the transport's
-    # bytes are its declared ones
+    # bytes are its declared ones, and so are AdamW's two kernels'
     st = analyze_trace(trace)
     assert st.kernel_launches == {"transport.quantize_pack": buckets,
-                                  "transport.unpack_dequantize": buckets}
+                                  "transport.unpack_dequantize": buckets,
+                                  "adamw.sq_norm": 1, "adamw.apply": 1}
     assert not any(key[0].startswith("aten.bitwise") for key in trace.ops)
 
 
