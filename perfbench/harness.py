@@ -147,6 +147,7 @@ def spawn(cell, seed, seconds, trace, fault=None, device_type="cuda",
 def result_line(cell, res, trace: bool, t_start: float, counts: dict,
                 peaks: dict, power: list) -> dict:
     """The result's JSON object from rank 0's gathered result."""
+    from .spans import idle_gaps_by_span
     from .trace import TraceRun, busy_seconds
 
     ranks = res.check["ranks"]
@@ -181,6 +182,8 @@ def result_line(cell, res, trace: bool, t_start: float, counts: dict,
             "device_ops": [[n[:120], s] for n, s in sorted(
                 totals.items(), key=lambda kv: -kv[1])[:10]],
             "idle_gaps": [[n[:120], s] for n, s in run.ranks[0].idle_gaps],
+            "idle_gaps_by_span": [[n[:120], s] for n, s in
+                                  idle_gaps_by_span(run.ranks[0])],
         }
     else:
         step_ms = np.max(np.array([r.step_ms for r in ranks]), axis=0)
@@ -222,12 +225,7 @@ def main(argv=None, t_start: float | None = None) -> int:
 
     power = pk.smi()
     _log(f"cards: {power}")
-    counts = {"flops": cnt.step_flops(cell.config,
-                                      cell.traffic["global_batch"],
-                                      cell.traffic["seq_len"])}
-    bits = cell.spec["sync"].get("compress_bits")
-    if bits:
-        counts["transport_bytes"] = cnt.transport_bytes(cell.config, bits)
+    counts = cnt.of_cell(cell)
     trace = bool(args.trace)
     res = spawn(cell, args.seed, args.seconds, trace)
     _log("plan (leaves, bytes, dtype, engine, chunks):",

@@ -1,22 +1,27 @@
 """The manifest (``BENCHMARK.json``) and the files it names.
 
-Every cell, configuration, traffic mix and per-layer metric is found by
-its name: a cell's ``workloads/<cell>.json``, its configuration's file
-(the manifest's ``file``), its traffic's ``traffic/<traffic>.json`` and
-each per-layer metric's reader ``metrics/<metric>.py``.  A later PR adds
-a cell, a configuration or a metric by adding such files and entries.
+Every cell, configuration, architecture, traffic mix and per-layer metric
+is found by its name: a cell's ``workloads/<cell>.json``, its
+configuration's file (the manifest's ``file``), the model file that the
+configuration names (``models/<model>.py``: its tree, its counts and its
+plain loss), its traffic's ``traffic/<traffic>.json`` and each per-layer
+metric's reader ``metrics/<metric>.py``.  A later PR adds a cell, a
+configuration, an architecture or a metric by adding such files and
+entries.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import re
 from pathlib import Path
 
 __all__ = ["HERE", "ROOT", "Cell", "load_manifest", "load_cell",
-           "check_manifest", "metric_reader", "NAME_RE", "UNIT_RE"]
+           "check_manifest", "metric_reader", "model_module", "NAME_RE",
+           "UNIT_RE"]
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -40,11 +45,22 @@ class Cell:
                             # reads (the manifest holds config, chips, why)
     end_to_end: tuple       # the manifest's metrics this cell reports
     per_layer: tuple
+    model_path: Path        # models/<model>.py of the configuration
 
     @property
     def grid(self) -> tuple[int, int]:
         n, ppn = self.spec["grid"]
         return int(n), int(ppn)
+
+    @property
+    def model(self):
+        """The configuration's model file, loaded (:func:`model_module`)."""
+        return model_module(self.model_path)
+
+    @property
+    def specs(self) -> dict:
+        """The weight tree's ``{path: (shape, dtype, scale)}``."""
+        return self.model.leaf_specs(self.config)
 
 
 def _read_json(path: Path) -> dict:
@@ -60,9 +76,19 @@ def _reports(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
+def _bench(root: Path) -> Path:
+    """This folder in the checkout at ``root``."""
+    return root / HERE.name
+
+
+def _model_path(config: dict, root: Path) -> Path:
+    return _bench(root) / "models" / f"{config['model']}.py"
+
+
 def load_cell(name: str, manifest: dict | None = None,
               root: Path = ROOT) -> Cell:
-    """The cell ``name`` with its configuration, traffic and spec."""
+    """The cell ``name`` with its configuration, traffic and spec, and
+    the path of its configuration's model file (which must exist)."""
     manifest = manifest if manifest is not None else load_manifest(root)
     cells = {w["name"]: w for w in manifest["workloads"]}
     if name not in cells:
@@ -70,8 +96,11 @@ def load_cell(name: str, manifest: dict | None = None,
     w = cells[name]
     configs = {c["name"]: c for c in manifest["configs"]}
     config = _read_json(root / configs[w["config"]]["file"])
-    traffic = _read_json(HERE / "traffic" / f"{w['traffic']}.json")
-    spec = _read_json(HERE / "workloads" / f"{name}.json")
+    model_path = _model_path(config, root)
+    if not model_path.is_file():
+        raise FileNotFoundError(f"{w['config']}: no model file {model_path}")
+    traffic = _read_json(_bench(root) / "traffic" / f"{w['traffic']}.json")
+    spec = _read_json(_bench(root) / "workloads" / f"{name}.json")
     n, ppn = spec["grid"]
     if n * ppn != w["chips"]:
         raise ValueError(f"{name}: a {n}x{ppn} grid on {w['chips']} chips")
@@ -83,7 +112,23 @@ def load_cell(name: str, manifest: dict | None = None,
                          if _reports(m, name)),
         per_layer=tuple(m for m in manifest["per_layer"]
                         if _reports(m, name)),
+        model_path=model_path,
     )
+
+
+@functools.cache
+def model_module(path: Path):
+    """The model file at ``path``, loaded once a process: a module with
+    ``leaf_specs(config)``, ``active_matmul_params(config)``,
+    ``step_flops(config, rows, seq)`` and ``loss(params, batch, config,
+    mm)``."""
+    if not Path(path).is_file():
+        raise FileNotFoundError(f"no model file {path}")
+    spec = importlib.util.spec_from_file_location(
+        "perfbench_model_" + re.sub(r"\W", "_", Path(path).stem), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def metric_reader(name: str):
@@ -126,6 +171,13 @@ def check_manifest(manifest: dict, root: Path = ROOT) -> list[str]:
             name(k, f"config {c['name']} reduced key")
         if not (root / c["file"]).is_file():
             p.append(f"config {c['name']}: no file {c['file']}")
+        else:
+            model = _read_json(root / c["file"]).get("model")
+            if not isinstance(model, str) or not NAME_RE.match(model):
+                p.append(f"config {c['name']}: bad model {model!r}")
+            elif not _model_path({"model": model}, root).is_file():
+                p.append(f"config {c['name']}: no model file "
+                         f"models/{model}.py")
     unique([c["name"] for c in manifest["configs"]], "configs")
     cfg_names = {c["name"] for c in manifest["configs"]}
     for w in manifest["workloads"]:
@@ -136,8 +188,8 @@ def check_manifest(manifest: dict, root: Path = ROOT) -> list[str]:
             p.append(f"workload {w['name']}: unknown config {w['config']}")
         if w["chips"] not in (1, 4):
             p.append(f"workload {w['name']}: chips {w['chips']}")
-        for f in (HERE / "workloads" / f"{w['name']}.json",
-                  HERE / "traffic" / f"{w['traffic']}.json"):
+        for f in (_bench(root) / "workloads" / f"{w['name']}.json",
+                  _bench(root) / "traffic" / f"{w['traffic']}.json"):
             if not f.is_file():
                 p.append(f"workload {w['name']}: no file {f.name}")
     unique([w["name"] for w in manifest["workloads"]], "workloads")
@@ -167,7 +219,8 @@ def check_manifest(manifest: dict, root: Path = ROOT) -> list[str]:
                 _line(m["layer"], f"metric {m['name']} layer", p)
                 if m["moves"] not in e2e:
                     p.append(f"metric {m['name']}: moves {m['moves']}")
-                if not (HERE / "metrics" / f"{m['name']}.py").is_file():
+                if not (_bench(root) / "metrics" /
+                        f"{m['name']}.py").is_file():
                     p.append(f"metric {m['name']}: no reader")
     unique([m["name"] for g in ("end_to_end", "per_layer")
             for m in manifest[g]], "metrics")

@@ -1,7 +1,8 @@
 """``step_mfu``: the whole step's share of the chips' bf16 peak, %.
 
-The benchmark's FLOPs of one step (``counts.step_flops``: 6 per active
-weight and token, plus attention) over the traced window's time per step
+The benchmark's FLOPs of one step (the model file's ``step_flops``, as
+``counts.of_cell`` takes it: for the decoder 6 per active weight and
+token, plus attention) over the traced window's time per step
 (the slowest rank's window), over 989 TFLOP/s times the chips.
 """
 

@@ -1,12 +1,32 @@
-"""The decoder's training loss, in plain float32 PyTorch.
+"""The decoder: its weight tree, its work a step, and its plain loss.
 
-Written from the configuration's file: a token embedding, ``num_layers``
-pre-norm blocks of causal multi-head attention with rotary positions and
-a SiLU-gated FFN (a dense one, or top-k routed experts with shared ones
-beside them), a final norm and the head (the embedding's transpose where
-the configuration ties them, else ``lm_head`` (D, V)); the loss
-is the masked mean cross-entropy of the next token plus, with experts,
-the Switch-style load-balance term.  As the configuration runs them:
+The model file of every configuration whose file says ``"model":
+"decoder"``: ``num_layers`` identical pre-norm blocks (the port's pattern
+of one sublayer) of causal multi-head attention with rotary positions and
+a SiLU-gated FFN, a dense one or top-k routed experts with shared ones
+beside them, between a token embedding and a final norm and head.  Plain
+PyTorch that imports nothing of the port: the harness takes the tree
+(:func:`leaf_specs`) and the counts (:func:`active_matmul_params`,
+:func:`step_flops`) from it, and the reference (``reference/train.py``)
+the loss (:func:`loss`).
+
+**The tree** has the port's keys and shapes (``{"embedding",
+"final_norm", ["lm_head",] "stack": {"sub0": ...}}``, every layer's leaf
+stacked on a leading dim), each leaf with the scale it starts at: the
+embedding 0.02, each projection (an untied head's too) ``1 / sqrt(fan-in)``
+(the second-to-last dim), the router ``1 / sqrt(d_model)``, the norms 0 (a
+scale of 1, as the RMS norm multiplies by ``1 + scale``).
+
+**The counts** are what the algorithm needs, not what an implementation
+does: the routed top-k plus the shared experts of every token (no capacity
+padding, no dropped items), causal attention over half the score matrix,
+no recomputation.
+
+**The loss**, written from the configuration's file and the published
+description of the layers: the masked mean cross-entropy of the next
+token through the head (the embedding's transpose where the configuration
+ties them, else ``lm_head`` (D, V)) plus, with experts, the Switch-style
+load-balance term.  As the configuration runs them:
 
 * RMS norm multiplies by ``1 + scale``;
 * rotary positions rotate the two halves of each head
@@ -21,7 +41,7 @@ the Switch-style load-balance term.  As the configuration runs them:
 
 ``mm`` is the matrix product every projection and attention product
 goes through: ``torch.matmul`` for the reference, a lower-precision one
-for the control (``train.fp8_matmul``).
+for the control (``reference.train.fp8_matmul``).
 """
 
 from __future__ import annotations
@@ -31,7 +51,80 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["loss"]
+__all__ = ["leaf_specs", "active_matmul_params", "step_flops", "loss"]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def leaf_specs(config: dict) -> dict:
+    """``{path: (shape, dtype, scale)}`` of the parameter tree, paths as
+    tuples of keys, ``scale`` 0 for a leaf that starts at zero."""
+    L, D, V = config["num_layers"], config["d_model"], config["vocab_size"]
+    H, K, hd = config["num_heads"], config["num_kv_heads"], \
+        config["head_dim"]
+    wd = _DTYPES[config["dtype"]]
+    f32 = torch.float32
+    fan = lambda shape: 1.0 / math.sqrt(shape[-2])  # noqa: E731
+    specs = {
+        ("embedding",): ((V, D), wd, 0.02),
+        ("final_norm",): ((D,), f32, 0.0),
+        ("stack", "sub0", "norm1"): ((L, D), f32, 0.0),
+        ("stack", "sub0", "norm2"): ((L, D), f32, 0.0),
+    }
+    if not config["tie_embeddings"]:
+        specs[("lm_head",)] = ((D, V), wd, fan((D, V)))
+    for name, shape in (("w_q", (L, D, H * hd)), ("w_k", (L, D, K * hd)),
+                        ("w_v", (L, D, K * hd)), ("w_o", (L, H * hd, D))):
+        specs["stack", "sub0", "mixer", name] = (shape, wd, fan(shape))
+
+    def glu(prefix, F):
+        for name, shape in (("w_gate", (L, D, F)), ("w_up", (L, D, F)),
+                            ("w_down", (L, F, D))):
+            specs[prefix + (name,)] = (shape, wd, fan(shape))
+
+    ffn = ("stack", "sub0", "ffn")
+    if config["ffn"] == "dense":
+        glu(ffn, config["d_ff"])
+    else:
+        m = config["moe"]
+        E, Fe = m["num_experts"], m["d_expert"]
+        specs[ffn + ("w_router",)] = ((L, D, E), f32, 1.0 / math.sqrt(D))
+        for name, shape in (("we_gate", (L, E, D, Fe)),
+                            ("we_up", (L, E, D, Fe)),
+                            ("we_down", (L, E, Fe, D))):
+            specs[ffn + (name,)] = (shape, wd, fan(shape))
+        if m["num_shared_experts"]:
+            glu(ffn + ("shared",), m["num_shared_experts"] * Fe)
+    return dict(sorted(specs.items()))
+
+
+def active_matmul_params(config: dict) -> int:
+    """Weights of the matrix products one token passes through: the head
+    (tied to the embedding or not, V x D once: the embedding's lookup is
+    no product), the attention projections, the FFN, or the router with
+    the top-k routed and the shared experts."""
+    L, D, V = config["num_layers"], config["d_model"], config["vocab_size"]
+    H, K, hd = config["num_heads"], config["num_kv_heads"], \
+        config["head_dim"]
+    attn = D * (H + 2 * K) * hd + H * hd * D
+    if config["ffn"] == "dense":
+        ffn = 3 * D * config["d_ff"]
+    else:
+        m = config["moe"]
+        ffn = ((m["top_k"] + m["num_shared_experts"]) * 3 * D * m["d_expert"]
+               + D * m["num_experts"])
+    return V * D + L * (attn + ffn)
+
+
+def step_flops(config: dict, rows: int, seq: int) -> float:
+    """FLOPs of one training step (forward and backward) over ``rows`` x
+    ``seq`` tokens: 6 per active weight and token, plus the attention
+    products' ``6 B H hd S^2`` a layer (``QK^T`` and ``PV`` over the causal
+    half, forward once and backward twice)."""
+    tokens = rows * seq
+    attn = 6 * rows * config["num_heads"] * config["head_dim"] * seq ** 2
+    return 6.0 * active_matmul_params(config) * tokens \
+        + float(attn) * config["num_layers"]
 
 
 def _rms(x, scale, eps):

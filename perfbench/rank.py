@@ -35,6 +35,7 @@ import gc
 import math
 import sys
 import time
+import typing
 
 import torch
 
@@ -109,21 +110,39 @@ def close_world() -> None:
 
 def port_config(config: dict):
     """The port's ``ModelConfig`` as the configuration's file states it:
-    the arch's config with every size of the file put in."""
-    from repro_torch.configs import get_config
+    the arch's config (``get_config(config["arch"])``) with every key of
+    the file that names one of its fields put in.  A nested configuration
+    (``moe``, ``mamba``, ...) is put in field by field over the arch's own
+    value, and a pattern may be given as a list of ``{mixer, ffn}``; keys
+    that name no field (``source``, ``published``, ``model``, ...) are the
+    harness's or the reader's.  ``_check_tree`` holds the result against
+    the model file's tree."""
+    from repro_torch.configs import ModelConfig, get_config
 
     base = get_config(config["arch"])
-    if any(s.mixer != "attn" or s.ffn != config["ffn"]
-           for s in base.pattern):
-        raise ValueError(f"{config['arch']}: the port's pattern is not "
-                         f"attention with a {config['ffn']} FFN")
-    over = {k: config[k] for k in (
-        "num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim",
-        "d_ff", "vocab_size", "act", "norm_eps", "rope_theta",
-        "tie_embeddings", "dtype")}
-    if config["ffn"] == "moe":
-        over["moe"] = dataclasses.replace(base.moe, **config["moe"])
-    return dataclasses.replace(base, name=f"{config['arch']}-bench", **over)
+    hints = typing.get_type_hints(ModelConfig)
+    over = {f.name: _field_value(hints[f.name], config[f.name],
+                                 getattr(base, f.name))
+            for f in dataclasses.fields(ModelConfig) if f.name in config}
+    over.setdefault("name", f"{config['arch']}-bench")
+    return dataclasses.replace(base, **over)
+
+
+def _field_value(hint, value, current):
+    """``value`` from a JSON file as a field of type ``hint`` holds it: a
+    dict over the nested dataclass ``current`` (or a new one), a list as a
+    tuple (of dataclasses where ``hint`` says so)."""
+    args = typing.get_args(hint)
+    kinds = [a for a in (args or (hint,)) if dataclasses.is_dataclass(a)]
+    if isinstance(value, dict) and kinds:
+        if dataclasses.is_dataclass(current):
+            return dataclasses.replace(current, **value)
+        return kinds[0](**value)
+    if isinstance(value, list):
+        inner = [a for a in args if dataclasses.is_dataclass(a)]
+        return tuple(inner[0](**v) if inner and isinstance(v, dict) else v
+                     for v in value)
+    return value
 
 
 def _check_tree(mine: dict, cfg) -> None:
@@ -214,9 +233,16 @@ def _sync(device) -> None:
 
 
 def _counters() -> dict:
+    """The program's counters, read before and after a traced window:
+    the transport kernels' launches and every counter the port publishes
+    (``trace_regions.counters()``, or its MoE counter where the port has
+    no such function)."""
+    from repro_torch import trace_regions
     from repro_torch.kernels import transport
 
-    return {"transport_launches": sum(transport.LAUNCHES.values())}
+    published = getattr(trace_regions, "counters", trace_regions.moe_counts)
+    return {"transport_launches": sum(transport.LAUNCHES.values()),
+            **published()}
 
 
 def _gather(obj, world: int) -> list:
@@ -257,7 +283,7 @@ def run_rank(cell, seed: int, *, rank: int, world: int, device,
     ctx = step.context
     step = _break(step, fault)
 
-    params = weights.make_params(cell.config, seed, device)
+    params = weights.make_params(cell.specs, seed, device)
     _check_tree(params, cfg)
     state = init_train_state(cfg, opt_cfg, policy, params=params,
                              device=device.type)
@@ -272,7 +298,7 @@ def run_rank(cell, seed: int, *, rank: int, world: int, device,
     losses, grad_norms = [], None
     ef_norms = [] if "ef" in state else None
     sample, untap = _tap_first_grads(
-        ctx, ref_train.sample_index(cell.config, seed, device)
+        ctx, ref_train.sample_index(cell.specs, seed, device)
         if rank == 0 else None)
     for s in range(CHECK_STEPS):
         state, m = step(state, batch(s))
@@ -289,7 +315,7 @@ def run_rank(cell, seed: int, *, rank: int, world: int, device,
     peak = _peak(device)
     change_norms = None
     if rank == 0:
-        w0 = weights.tree_leaves(weights.make_params(cell.config, seed,
+        w0 = weights.tree_leaves(weights.make_params(cell.specs, seed,
                                                      device))
         change_norms = _leaf_norms(
             p.detach().to(torch.float32) - w.to(torch.float32)

@@ -1,7 +1,8 @@
 """Three steps of the cell's data-parallel training, in plain float32.
 
 From the weights made again from the seed and the same global batches:
-each rank's rows give a loss and float32 gradients (``model.loss``); the
+each rank's rows give a loss and float32 gradients (the loss of the
+configuration's model file, ``models/<model>.py``, in float32); the
 sync averages them over the ranks (``mean``), or at one rank with
 compression sends ``c = g + r`` through the wire's round trip and keeps
 ``r = c - Q(c)`` (``quant``); the synced gradient takes the leaf's stored
@@ -28,7 +29,7 @@ import torch
 
 from .. import traffic as traffic_gen
 from .. import weights
-from . import model, quant
+from . import quant
 
 __all__ = ["Readings", "run", "fp8_matmul", "lr_at", "batch_tensors",
            "EF_STEPS", "sample_index", "take_sample"]
@@ -50,14 +51,14 @@ class Readings:
     # gradient at the elements of ``sample_index``, float32
 
 
-def sample_index(config: dict, seed: int, device) -> list:
-    """Per leaf, the flat indices of the elements the first gradient is
-    compared at: ``SAMPLE`` drawn from the seed (every element of a
-    smaller leaf)."""
+def sample_index(specs: dict, seed: int, device) -> list:
+    """Per leaf of ``specs``, the flat indices of the elements the first
+    gradient is compared at: ``SAMPLE`` drawn from the seed (every element
+    of a smaller leaf)."""
     gen = torch.Generator(device=device).manual_seed(
         (int(seed) + 0x5EED) % 2 ** 63)
     out = []
-    for shape, _, _ in weights.leaf_specs(config).values():
+    for shape, _, _ in specs.values():
         n = int(np.prod(shape))
         out.append(torch.arange(n, device=device) if n <= SAMPLE else
                    torch.randint(0, n, (SAMPLE,), generator=gen,
@@ -118,7 +119,8 @@ def run(cell, seed: int, device, *, steps: int = 3, mm=torch.matmul
     if bits and world != 1:
         raise ValueError("the reference's compressed sync is one rank's")
     b1, b2 = opt["betas"]
-    leaves = weights.tree_leaves(weights.make_params(config, seed, device))
+    specs, model = cell.specs, cell.model
+    leaves = weights.tree_leaves(weights.make_params(specs, seed, device))
     names = [p for p, _ in leaves]
     stored = [t.dtype for _, t in leaves]
     w0 = [t.detach().clone() for _, t in leaves]
@@ -130,7 +132,7 @@ def run(cell, seed: int, device, *, steps: int = 3, mm=torch.matmul
         "error_feedback") else None
     out = Readings(losses=[], grad_norms=[], change_norms=[],
                    ef_norms=[] if ef is not None else None)
-    idx = sample_index(config, seed, device)
+    idx = sample_index(specs, seed, device)
     for step in range(steps):
         full = traffic_gen.global_batch(cell.traffic, config["vocab_size"],
                                         seed, step)

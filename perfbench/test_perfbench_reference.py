@@ -12,7 +12,7 @@ import torch
 
 from perfbench import manifest as mf
 from perfbench import weights
-from perfbench.reference import compare, model, quant, train
+from perfbench.reference import compare, quant, train
 
 TINY = {"num_layers": 2, "d_model": 32, "num_heads": 4, "num_kv_heads": 2,
         "head_dim": 8, "d_ff": 48, "vocab_size": 64, "dtype": "float32"}
@@ -82,7 +82,7 @@ def test_the_loss_of_zero_projections_by_hand(ffn):
 def _zero_projections_by_hand(ffn, tied):
     cell = tiny(ffn, tie_embeddings=tied)
     config = cell.config
-    tree = weights.make_params(config, 5, "cpu")
+    tree = weights.make_params(cell.specs, 5, "cpu")
     for path, leaf in weights.tree_leaves(tree):
         if path[0] == "stack":
             leaf.zero_()
@@ -90,7 +90,7 @@ def _zero_projections_by_hand(ffn, tied):
         "tokens": np.array([[1, 2, 3, 4]], np.int32),
         "labels": np.array([[2, 3, 4, 0]], np.int32),
         "loss_mask": np.array([[1, 1, 1, 0]], np.float32)}, "cpu")
-    got = float(model.loss(tree, batch, config))
+    got = float(cell.model.loss(tree, batch, config))
     # every branch adds zero: the logits are the normed embedding rows
     # against the table, or against the untied head
     E = tree["embedding"].double().numpy()

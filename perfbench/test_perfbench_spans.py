@@ -1,19 +1,22 @@
-"""The program's spans read from a traced window (``spans.py``) and the
-readers that take them, on a Chrome trace made up by hand: two host threads
-(the window's, and autograd's that launches the backward), launches linked
-to their kernels by ``correlation`` through both launch calls
-(``cudaLaunchKernel``, ``cuLaunchKernel``), a recompute on autograd's
-thread, and an idle gap before a kernel of each phase.  ``spans.read_spans``
-keeps ``trace.read_trace``'s kernels and idle gaps as they are; each reader
-finds nothing in the harness's own ``RankTrace`` (no span fields, no MoE
-counter keys), in an empty run or in a trace without the program's
-spans."""
+"""The program's spans read from a traced window (``trace.read_trace``)
+and the readers that take them (``spans.py``), on a Chrome trace made up
+by hand: two host threads (the window's, and autograd's that launches the
+backward), launches linked to their kernels by ``correlation`` through
+both launch calls (``cudaLaunchKernel``, ``cuLaunchKernel``), a recompute
+on autograd's thread, and an idle gap before a kernel of each phase.  The
+spans change nothing of the window's kernels and idle gaps; each reader
+finds nothing in a ``RankTrace`` without spans or the MoE counter's keys,
+in an empty run or in a trace without the program's spans.  And a traced
+run of the cell, as ``run.py --trace 1`` makes it, prints every reader's
+metric."""
 
+import dataclasses
 import json
 
 import pytest
 import torch
 
+from perfbench import counts
 from perfbench import manifest as mf
 from perfbench import spans
 from perfbench.test_perfbench_faults import (  # noqa: F401 (a fixture)
@@ -128,15 +131,15 @@ def traced(tmp_path):
     """``(path, run)``: the trace file and its ``TraceRun`` of one step
     read with the spans."""
     path = write(tmp_path / "trace_rank0.json")
-    return path, run_of(spans.read_spans(path))
+    return path, run_of(read_trace(path))
 
 
 def harness_trace(path, counters=None) -> RankTrace:
-    """The rank's window as ``trace.profile_steps`` reads it."""
-    window_s, kernels, host = read_trace(path)
-    return RankTrace(window_s=window_s, kernels=kernels,
-                     counters=dict(counters or {}),
-                     idle_gaps=idle_gaps(kernels, host, window_s))
+    """The rank's window with the span fields at their defaults, as a
+    reading that keeps no spans holds it."""
+    rt = read_trace(path, counters)
+    return RankTrace(window_s=rt.window_s, kernels=rt.kernels,
+                     counters=rt.counters, idle_gaps=rt.idle_gaps)
 
 
 def run_of(rank: RankTrace, steps: int = 1) -> TraceRun:
@@ -145,22 +148,27 @@ def run_of(rank: RankTrace, steps: int = 1) -> TraceRun:
                     peaks={"bf16_flops": 989e12, "bytes_per_s": 3.35e12})
 
 
-def test_the_harness_s_reading_is_kept_as_it_is(traced):
-    """The spans' reading keeps ``read_trace``'s window and kernels and
-    ``idle_gaps`` to the bit, and the counters it is handed."""
+def test_the_harness_s_reading_is_kept_as_it_is(traced, tmp_path):
+    """The spans change nothing of the window, the kernels and the idle
+    gaps: the same trace without them reads the same to the bit, with the
+    counters it is handed."""
     path, _ = traced
     counters = {"transport_launches": 4}
-    rs = spans.read_spans(path, counters)
-    old = harness_trace(path, counters)
-    assert isinstance(rs, RankTrace)
+    rs = read_trace(path, counters)
+    old = read_trace(write(tmp_path / "bare.json", with_spans=False),
+                     counters)
     assert (rs.window_s, rs.kernels, rs.counters, rs.idle_gaps) == (
         old.window_s, old.kernels, old.counters, old.idle_gaps)
+    assert rs.idle_gaps == idle_gaps(rs.kernels, [
+        (n, a * US, (b - a) * US) for n, tid, a, b in OPS if tid == MAIN],
+        rs.window_s)
     assert [n for n, _, _ in rs.kernels] == [k[0] for k in KERNELS[:-1]]
+    assert old.spans == [] and len(rs.spans) == len(SPANS)
 
 
 def test_each_kernel_is_charged_to_its_span(traced):
     path, _ = traced
-    rs = spans.read_spans(path)
+    rs = read_trace(path)
     chains = {n: rs.chain(i) if i is not None else []
               for (n, _, _), i in zip(rs.kernels, rs.kernel_span)}
     assert chains["gemm_fwd"] == [P + "forward"]
@@ -179,7 +187,7 @@ def test_each_kernel_is_charged_to_its_span(traced):
 
 def test_the_spans_partition_the_attributed_kernels(traced):
     path, _ = traced
-    rs = spans.read_spans(path)
+    rs = read_trace(path)
     phases = spans.phase_ms(rs, steps=1)
     unspanned = 1e3 * sum(d for (_, _, d), i in zip(rs.kernels,
                                                     rs.kernel_span)
@@ -198,13 +206,13 @@ def test_each_span_reader_reads_its_phase(traced, name):
 
 def test_a_reader_divides_by_the_steps(traced):
     path, _ = traced
-    run = run_of(spans.read_spans(path), steps=4)
+    run = run_of(read_trace(path), steps=4)
     assert mf.metric_reader("adamw_ms")(run) == pytest.approx(0.025)
 
 
 def test_idle_gaps_are_charged_to_the_kernel_ending_each(traced):
     path, _ = traced
-    rs = spans.read_spans(path)
+    rs = read_trace(path)
     got = dict(spans.idle_gaps_by_span(rs, top=20))
     assert got == pytest.approx({k: v * US for k, v in WANT_GAPS.items()})
     assert sum(got.values()) == pytest.approx(sum(
@@ -245,7 +253,7 @@ def test_each_reader_finds_nothing_without_the_program_s_spans(
     path = write(tmp_path / "trace_rank0.json")
     assert mf.metric_reader(name)(run_of(harness_trace(path))) is None
     bare = write(tmp_path / "bare.json", with_spans=False)
-    assert mf.metric_reader(name)(run_of(spans.read_spans(bare))) is None
+    assert mf.metric_reader(name)(run_of(read_trace(bare))) is None
     empty = TraceRun(steps=4, chips=1, ranks=[RankTrace(
         window_s=1.0, kernels=[], counters={}, idle_gaps=[])],
         counts={"flops": 1e12}, peaks={"bf16_flops": 989e12,
@@ -269,38 +277,35 @@ def test_the_command_prints_a_trace_s_phases(traced, capsys):
 
 
 def test_the_command_runs_a_one_chip_cell_traced(
-        tmp_path, monkeypatch, one_rank_world, capsys):
-    """``--workload``: the harness's traced run (here the cell's rank run
-    at the faults test's small size on the CPU, in a one-rank gloo world,
-    standing in for ``harness.main``'s run on a card) with the eight
-    metrics and the idle gaps by span added.  Every span of the DP step
-    opens in each window step, and the counter's growth over the run is
-    the window's routes alone (set-up's five steps run with no
-    profiler)."""
+        tmp_path, monkeypatch, one_rank_world):
+    """A traced run as ``run.py --trace 1`` makes it (here the cell's rank
+    run at the faults test's small size on the CPU, in a one-rank gloo
+    world, and its result line): the eight span and counter metrics and
+    the idle gaps by span are in it.  Every span of the DP step opens in
+    each window step, and the counter's growth over the run is the
+    window's routes alone (set-up's five steps run with no profiler)."""
     from perfbench import harness
     from perfbench import rank as rank_mod
 
-    cell = tiny()
+    cell = dataclasses.replace(tiny(), per_layer=tuple(
+        m for m in mf.load_manifest()["per_layer"] if m["name"] in
+        spans.METRICS))
     monkeypatch.setattr(rank_mod, "HERE", tmp_path)
-    monkeypatch.setattr(mf, "load_cell", lambda name: cell)
-
-    def main(argv):
-        res = rank_mod.run_rank(cell, SEED, rank=0, world=1, device="cpu",
-                                seconds=0.0, trace=True)
-        print(json.dumps(harness.result_line(
-            cell, res, True, 0.0, {"flops": 1e12}, PEAKS, [])))
-        return 0
-
-    monkeypatch.setattr(harness, "main", main)
-    assert spans.main(["--workload", cell.name, "--seed", str(SEED)]) == 0
-    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    res = rank_mod.run_rank(cell, SEED, rank=0, world=1, device="cpu",
+                            seconds=0.0, trace=True)
+    line = harness.result_line(cell, res, True, 0.0, counts.of_cell(cell),
+                               PEAKS, [])
+    json.dumps(line)
     steps = cell.spec["trace_steps"]
     assert line["correct"] and line["attempted"] == steps
-    assert set(spans.METRICS) <= set(line["metrics"])
+    assert set(line["metrics"]) == set(spans.METRICS)
     for name, unit in spans.METRICS.items():
         assert line["metrics"][name]["unit"] == unit
+    rt = res.trace
     layers = cell.config["num_layers"]
-    assert {n: s["opened"] for n, s in line["spans"].items()} == {
+    opened = {n: s["opened"] for n, s in spans._summary(rt, steps)[
+        "spans"].items()}
+    assert opened == {
         P + "forward": steps, P + "backward": steps,
         P + "grad_sync": steps, P + "adamw": steps,
         P + "recompute": steps * layers,
@@ -308,7 +313,7 @@ def test_the_command_runs_a_one_chip_cell_traced(
         P + "moe.experts": 2 * steps * layers}
     tokens = cell.traffic["global_batch"] * cell.traffic["seq_len"]
     moe = cell.config["moe"]
-    counts = line["moe_counts_per_step"]
-    assert counts["moe_routed"] == layers * tokens * moe["top_k"]
-    assert 0 < counts["moe_kept"] <= counts["moe_routed"]
-    assert "idle_gaps_by_span" in line["breakdown"]
+    assert rt.counters["moe_routed"] == steps * layers * tokens * moe[
+        "top_k"]
+    assert 0 < rt.counters["moe_kept"] <= rt.counters["moe_routed"]
+    assert line["breakdown"]["idle_gaps_by_span"]
